@@ -10,7 +10,8 @@ each printed as one JSON line:
                   src/repro_torch/csrc/ with nvcc;
   3. kernel     — the kernel against its plain PyTorch twin on the card:
                   f32/bf16/int8, ragged sizes, one case above 2^24 lanes,
-                  the admission and decode-column shapes of the main path.
+                  the admission-row and decode-column shapes of the main
+                  path.
                   Stored words and counts bit-exact, energy rtol 1e-5;
   4. reduced    — reduced qwen2.5-3b in float32 (TF32 off) serving
                   tests/fixtures/trace_smoke.jsonl through the kernel and
@@ -23,7 +24,11 @@ each printed as one JSON line:
                   scheduler, every decode burst under
                   torch.cuda.set_sync_debug_mode("error") — counting the
                   kernel's launches over that run only;
-  6. kernels    — per-kernel times (CUDA events) against the HBM bound.
+  6. kernels    — per-kernel times (CUDA events) against the HBM bound
+                  at the main path's shapes, the admission write on the
+                  run's own operands (real prefill rows over a cold slot
+                  and over a freed slot's stale rows), each also held
+                  bit-exactly against the twin.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
 the script exits non-zero and prints no result; it also refuses to run
@@ -102,7 +107,7 @@ def phase_kernel(device):
         ("f32_above_2p24", ((1 << 24) + 3,), torch.float32, Priority.HIGH),
         ("bf16_decode_col", (36, 4, 1, 2, 128), torch.bfloat16,
          Priority.LOW),
-        ("bf16_admission", (36, 4, 288, 2, 128), torch.bfloat16,
+        ("bf16_admission_row", (36, 1, 288, 2, 128), torch.bfloat16,
          Priority.MID),
     ]
     worst_abs = 0
@@ -208,7 +213,7 @@ def phase_full(device):
 
     # the step timing doubles as the warm-up (cuBLAS handles, first
     # launches); the main path below then runs exactly once, counted
-    step_ms = decode_step_ms(eng, cfg, prompt_len, capacity, device)
+    step_ms = decode_step_ms(eng, prompt_len, capacity)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sch = ContinuousScheduler(eng, capacity=capacity)
@@ -247,32 +252,16 @@ def phase_full(device):
           "write_skip_rate": tot["write_skip_rate"],
           "bursts_sync_free": True, "extent_write_launches": launches,
           "ok": True})
-    return launches, eng
+    return launches, eng, sch
 
 
-def decode_step_ms(eng, cfg, prompt_len, batch, device) -> float:
+def decode_step_ms(eng, prompt_len, batch) -> float:
     """Milliseconds per fused decode step (model + column writes) at a
     full pool, timed over one 16-step burst after a prefill and a 2-step
-    warm-up burst."""
-    import numpy as np
+    warm-up burst (the setup ``repro_torch.launch.profile`` profiles)."""
     import torch
-    from repro_torch import rng
-    from repro_torch.core.energy_model import zero_slot_stats
-    from repro_torch.core.priority import Priority
-    from repro_torch.memory import WriteStats
-    toks = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (batch, prompt_len))).to(device)
-    vec = eng.vectors_for_floor(Priority.LOW)
-    tok, cache, key, _ = eng.prefill(eng.params, {"tokens": toks}, None,
-                                     rng.PRNGKey(5), vec)
-    pos = torch.full((batch,), prompt_len, dtype=torch.int64, device=device)
-    active = torch.ones((batch,), dtype=torch.bool, device=device)
-
-    def run(n):
-        return eng.burst(eng.params, tok, cache, pos, key,
-                         WriteStats.zero(device), zero_slot_stats(
-                             batch, device), active, vec, n=n)
-
+    from repro_torch.launch.profile import steady_burst
+    run = steady_burst(eng, batch, prompt_len, seed=3)
     run(2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -289,45 +278,108 @@ def _leaves(tree):
         yield tree
 
 
-def phase_kernels_line(launches, worst_abs, worst_rel, device):
+def check_against_twin(o_u, n_u, seed, vec):
+    """Largest difference of stored words and counts between the kernel
+    and its twin on the same lanes (launches here are not counted)."""
     import torch
-    from repro_torch.core.priority import Priority
     from repro_torch.kernels.extent_write import kernel as K
-    from repro_torch.kernels.extent_write import ops, ref
+    from repro_torch.kernels.extent_write import ref
+    n0 = K.extent_write_cuda.launches
+    s_k, st_k = K.extent_write_cuda(o_u, n_u, seed, *vec)
+    s_r, st_r = ref.extent_write_ref(o_u, n_u, seed, *vec)
+    K.extent_write_cuda.launches = n0
+    torch.cuda.synchronize()
+    diff = int((ref.as_u32(s_k) - ref.as_u32(s_r)).abs().max())
+    for k in ("flips01", "flips10", "errors"):
+        diff = max(diff, abs(int(st_k[k]) - int(st_r[k])))
+    e_k, e_r = float(st_k["energy_pj"]), float(st_r["energy_pj"])
+    if diff or abs(e_k - e_r) > RTOL_ENERGY * abs(e_r):
+        raise AssertionError("kernel disagrees with its twin on the main "
+                             "path's operands")
+    return diff, int(st_r["flips01"]) + int(st_r["flips10"])
+
+
+def time_writes(name, writes):
+    """Kernel, twin and bound of a list of lane writes, per launch.
+    ``writes`` holds (old lanes, new lanes, vectors) triples."""
+    from repro_torch.kernels.extent_write import kernel as K
+    from repro_torch.kernels.extent_write import ref
+    lanes = sum(o.numel() for o, _, _ in writes)
+    worst, flips = 0, 0
+    for o, n, vec in writes:
+        d, f = check_against_twin(o, n, 1, vec)
+        worst, flips = max(worst, d), flips + f
+    n0 = K.extent_write_cuda.launches
+    iters = 200 if lanes < 1 << 20 else 50
+
+    def run(fn):
+        return lambda: [fn(o, n, 1, *vec) for o, n, vec in writes]
+
+    ms = cuda_ms(run(K.extent_write_cuda), iters) / len(writes)
+    plain = cuda_ms(run(ref.extent_write_ref), max(5, iters // 10)
+                    ) / len(writes)
+    K.extent_write_cuda.launches = n0
+    t_bytes = 12 * lanes / HBM_BYTES_PER_S * 1e3 / len(writes)
+    t_ops = flips / F32_FLOPS * 1e3 / len(writes)  # one f32 add per flip
+    return {"shape": name, "lanes_per_launch": lanes // len(writes),
+            "flips_per_launch": flips / len(writes), "ms": ms,
+            "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": worst}
+
+
+def phase_kernels_line(launches, worst_abs, worst_rel, eng, sch, device):
+    """Times at the main path's shapes: an admission writes the K and V
+    rows (36, 1, 288, 2, 128) bf16 of one new prompt — real prefill rows,
+    zero past the prompt — over a cold slot (zeros) or over the stale rows
+    a finished request of the run left there; a decode step writes one
+    ring column (36, 4, 1, 2, 128) bf16 per leaf."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core.priority import Priority
+    from repro_torch.kernels.extent_write import ops
     from repro_torch.memory import leaf_vectors
+    prompt_len = eng.scfg.max_seq - eng.scfg.max_new_tokens
+    prompt = torch.from_numpy(np.random.default_rng(11).integers(
+        0, eng.cfg.vocab_size, (1, prompt_len))).to(device)
+    _, rows = eng.api.prefill(eng.params, {"tokens": prompt},
+                              eng.scfg.max_seq)
+    vecs = eng.vectors_for_floor(Priority.LOW)
+    news = T.leaves(rows)
+    stale = T.leaves(sch.pool.extract_rows([0]))
+
+    def admission(olds):
+        return [(ops.to_lanes(o), ops.to_lanes(n),
+                 (v.thr01, v.thr10, v.le01, v.le10))
+                for o, n, v in zip(olds, news, vecs) if v is not None]
+
     lv = leaf_vectors(torch.bfloat16, Priority.LOW, device)
-    vec = (lv.thr01, lv.thr10, lv.le01, lv.le10)
-    shapes = {"admission": (36, 4, 288, 2, 128), "decode": (36, 4, 1, 2, 128)}
-    timings = {}
-    for name, shape in shapes.items():
-        old, new = random_pair(shape, torch.bfloat16, 7, device)
-        if name == "admission":   # a cold slot: the prefill diffs vs zeros
-            old = torch.zeros_like(old)
-        o_u, n_u = ops.to_lanes(old), ops.to_lanes(new)
-        lanes = o_u.numel()
-        iters = 50 if name == "admission" else 500
-        ms = cuda_ms(lambda: K.extent_write_cuda(o_u, n_u, 1, *vec), iters)
-        plain = cuda_ms(lambda: ref.extent_write_ref(o_u, n_u, 1, *vec),
-                        max(5, iters // 10))
-        _, st = ref.extent_write_ref(o_u, n_u, 1, *vec)
-        flips = int(st["flips01"]) + int(st["flips10"])
-        t_bytes = 12 * lanes / HBM_BYTES_PER_S * 1e3
-        t_ops = flips / F32_FLOPS * 1e3   # one f32 energy add per flip
-        timings[name] = {"lanes": lanes, "ms": ms, "plain_ms": plain,
-                         "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes >= t_ops
-                         else "operations", "flips": flips}
-    adm = timings["admission"]
+    old, new = random_pair((36, 4, 1, 2, 128), torch.bfloat16, 7, device)
+    row = f"admission {tuple(news[0].shape)} {str(news[0].dtype)[6:]}"
+    timings = {
+        "admission_stale": time_writes(f"{row} over stale rows",
+                                       admission(stale)),
+        "admission_cold": time_writes(
+            f"{row} over zeros",
+            admission([torch.zeros_like(n) for n in news])),
+        "decode": time_writes(f"decode column {tuple(old.shape)} bfloat16",
+                              [(ops.to_lanes(old), ops.to_lanes(new),
+                                (lv.thr01, lv.thr10, lv.le01, lv.le10))]),
+    }
+    adm = timings["admission_stale"]
     emit({"kernels": [{
         "name": "extent_write", "route": "cuda",
         "source": "src/repro_torch/csrc/extent_write.cu",
         "replaces": "src/repro/kernels/extent_write/kernel.py:114",
-        "launches": launches, "max_abs_err": worst_abs,
+        "launches": launches,
+        "max_abs_err": max(worst_abs, *(t["max_abs_err"]
+                                        for t in timings.values())),
         "energy_max_rel_err": worst_rel,
         "ms": adm["ms"], "plain_ms": adm["plain_ms"],
         "bound_ms": adm["bound_ms"], "bound_by": adm["bound_by"],
-        "library_ms": None, "shape": "admission (36,4,288,2,128) bf16",
-        "at_decode": timings["decode"], "at_admission": adm}]})
+        "library_ms": None, "shape": adm["shape"],
+        "at": timings}]})
 
 
 def main() -> int:
@@ -353,9 +405,9 @@ def main() -> int:
           "seconds": build_s})
     worst_abs, worst_rel = phase_kernel(device)
     phase_reduced(device)
-    launches, _ = phase_full(device)
+    launches, eng, sch = phase_full(device)
     print(nvidia_smi_line(), flush=True)
-    phase_kernels_line(launches, worst_abs, worst_rel, device)
+    phase_kernels_line(launches, worst_abs, worst_rel, eng, sch, device)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

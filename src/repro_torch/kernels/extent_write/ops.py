@@ -19,7 +19,7 @@ through the backend registry there.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -31,11 +31,11 @@ _SUB = {1: torch.int8, 2: torch.int16, 4: torch.int32}
 
 
 @functools.lru_cache(maxsize=64)
-def level_vectors(dtype: torch.dtype, level: Priority,
-                  cfg: Optional[write_driver.DriverConfig] = None
+def level_vectors(dtype: torch.dtype, level: Priority
                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """Host (thr01 uint32, thr10 uint32, e01 f32, e10 f32), each (32,)."""
-    table = write_driver.level_table(cfg or write_driver.DriverConfig())
+    """Host (thr01 uint32, thr10 uint32, e01 f32, e10 f32), each (32,),
+    from the default driver's level table."""
+    table = write_driver.level_table()
     codes = bitplane_priorities(dtype, Priority.coerce(level))
     vecs = [table[k][codes] for k in ("wer01", "wer10", "e01", "e10")]
     ebits = codes.shape[0]

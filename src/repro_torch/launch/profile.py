@@ -10,6 +10,9 @@ host wall ms per step, device-busy ms per step (the sum of kernel times)
 and the busy share, the extent_write kernel's share, and the top ops by
 host time and by device time. ``--out`` also writes the full
 ``key_averages`` table. Needs a CUDA device.
+
+``steady_burst`` is the decode-step setup shared with ``chip_smoke.py``,
+which times the same step without the profiler.
 """
 from __future__ import annotations
 
@@ -37,6 +40,29 @@ def _dev_us(evt) -> float:
     return 0.0
 
 
+def steady_burst(eng: ServingEngine, batch: int, prompt_len: int,
+                 seed: int = 0):
+    """Prefill a full pool of ``batch`` random prompts of ``prompt_len``
+    tokens (drawn from ``seed``) at the LOW floor; returns ``run(n)``,
+    which decodes ``n`` fused steps from that state. The state is not
+    carried over, so every call repeats the same steps."""
+    device = eng.device
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, eng.cfg.vocab_size, (batch, prompt_len))).to(device)
+    vec = eng.vectors_for_floor(Priority.LOW)
+    tok, cache, key, _ = eng.prefill(eng.params, {"tokens": toks}, None,
+                                     rng.PRNGKey(seed), vec)
+    pos = torch.full((batch,), prompt_len, dtype=torch.int64, device=device)
+    active = torch.ones((batch,), dtype=torch.bool, device=device)
+
+    def run(n: int):
+        return eng.burst(eng.params, tok, cache, pos, key,
+                         WriteStats.zero(device),
+                         zero_slot_stats(batch, device), active, vec, n=n)
+
+    return run
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b")
@@ -52,21 +78,7 @@ def main(argv=None):
         cfg = cfg.reduced()
     eng = ServingEngine(cfg, ServeConfig(
         max_seq=args.prompt_len + 2 * args.steps + 4), device=device)
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)
-    vec = eng.vectors_for_floor(Priority.LOW)
-    tok, cache, key, _ = eng.prefill(eng.params, {"tokens": toks}, None,
-                                     rng.PRNGKey(1), vec)
-    pos = torch.full((args.batch,), args.prompt_len, dtype=torch.int64,
-                     device=device)
-    active = torch.ones((args.batch,), dtype=torch.bool, device=device)
-
-    def run(n):
-        return eng.burst(eng.params, tok, cache, pos, key,
-                         WriteStats.zero(device),
-                         zero_slot_stats(args.batch, device), active, vec,
-                         n=n)
-
+    run = steady_burst(eng, args.batch, args.prompt_len)
     run(3)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,

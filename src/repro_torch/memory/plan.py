@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,16 +38,19 @@ from repro_torch.memory.backends import Backend, LeafVectors, get_backend
 from repro_torch.memory.stats import WriteStats
 
 
+#: cache leaves carry the request/slot dimension at axis 1
+BATCH_AXIS = 1
+
+
 @functools.lru_cache(maxsize=512)
-def leaf_vectors(dtype: torch.dtype, level: Priority, device: torch.device,
-                 cfg: Optional[write_driver.DriverConfig] = None
+def leaf_vectors(dtype: torch.dtype, level: Priority, device: torch.device
                  ) -> LeafVectors:
     """Resolve one (element dtype, effective level) pair to device
     operands, once per process and device."""
-    table = write_driver.level_table(cfg or write_driver.DriverConfig())
+    table = write_driver.level_table()
     codes = bitplane_priorities(dtype, Priority.coerce(level))
     thr01, thr10, e01, e10 = xops.level_vectors(dtype,
-                                                Priority.coerce(level), cfg)
+                                                Priority.coerce(level))
 
     def dev(a):
         return torch.from_numpy(np.array(a)).to(device)
@@ -58,7 +61,8 @@ def leaf_vectors(dtype: torch.dtype, level: Priority, device: torch.device,
         lat_max=dev(np.float32(table["lat"][codes].max())))
 
 
-def _default_approx_if(leaf, tag: Priority) -> bool:
+def _approximate(leaf, tag: Priority) -> bool:
+    """Floating-point leaves that are not EXACT go through the driver."""
     return leaf.dtype.is_floating_point and tag != Priority.EXACT
 
 
@@ -69,46 +73,35 @@ class WritePlan:
     leaf_levels: Tuple[Optional[Priority], ...]
     leaf_seq_axis: Tuple[Optional[int], ...]
     device: torch.device
-    batch_axis: int = 1
-    floor_vectors: Dict[Priority, Tuple[Optional[LeafVectors], ...]] = (
-        dataclasses.field(default_factory=dict))
+    floor_vectors: Dict[Priority, Tuple[Optional[LeafVectors], ...]]
 
     @classmethod
-    def for_tree(cls, tree: Any, *, device,
-                 policy: Callable[..., Any] = kv_cache_policy,
-                 backend: str | Backend = "lanes_ref",
-                 axes: Any = None, batch_axis: int = 1,
-                 driver_cfg: Optional[write_driver.DriverConfig] = None,
-                 approx_if: Callable[[Any, Priority], bool]
-                 = _default_approx_if) -> "WritePlan":
-        """Resolve ``policy`` over ``tree`` (leaves need only ``dtype``).
-        ``axes`` is a same-structure tree of logical-axis tuples; leaves
-        whose tuple holds ``"kv_seq"`` get the column-scoped decode write."""
+    def for_tree(cls, tree: Any, *, device, backend: str,
+                 axes: Any) -> "WritePlan":
+        """Resolve ``kv_cache_policy`` over ``tree`` (leaves need only
+        ``dtype``) for the registry backend ``backend``. ``axes`` is a
+        same-structure tree of logical-axis tuples; leaves whose tuple
+        holds ``"kv_seq"`` get the column-scoped decode write."""
         device = torch.device(device)
         flat = T.flatten(tree)
         levels = []
         for path, leaf in flat:
-            tag = Priority.coerce(policy(path, leaf))
-            levels.append(tag if approx_if(leaf, tag) else None)
-        if axes is not None:
-            flat_axes = [ax for _, ax in T.flatten(axes)]
-            seq_axis = tuple(ax.index("kv_seq") if "kv_seq" in ax else None
-                             for ax in flat_axes)
-        else:
-            seq_axis = (None,) * len(flat)
+            tag = Priority.coerce(kv_cache_policy(path, leaf))
+            levels.append(tag if _approximate(leaf, tag) else None)
+        seq_axis = tuple(ax.index("kv_seq") if "kv_seq" in ax else None
+                         for _, ax in T.flatten(axes))
         floor_vectors = {
             floor: tuple(
-                leaf_vectors(leaf.dtype, max(lvl, floor), device,
-                             driver_cfg) if lvl is not None else None
+                leaf_vectors(leaf.dtype, max(lvl, floor), device)
+                if lvl is not None else None
                 for (_, leaf), lvl in zip(flat, levels))
             for floor in Priority}
-        be = backend if not isinstance(backend, str) else get_backend(backend)
-        return cls(backend=be, paths=tuple(p for p, _ in flat),
+        return cls(backend=get_backend(backend),
+                   paths=tuple(p for p, _ in flat),
                    leaf_levels=tuple(levels), leaf_seq_axis=seq_axis,
-                   device=device, batch_axis=batch_axis,
-                   floor_vectors=floor_vectors)
+                   device=device, floor_vectors=floor_vectors)
 
-    def vectors_for(self, floor: Priority = Priority.LOW
+    def vectors_for(self, floor: Priority
                     ) -> Tuple[Optional[LeafVectors], ...]:
         """Per-leaf operands for one quality floor (LOW = static policy)."""
         return self.floor_vectors[Priority.coerce(floor)]
@@ -119,11 +112,10 @@ class WritePlan:
         return [o for _, o in flat_old], T.leaves(new_tree)
 
     def write(self, key: np.ndarray, old_tree: Any, new_tree: Any,
-              vectors: Optional[Sequence] = None) -> Tuple[Any, WriteStats]:
-        """Diff-write a full tree (or a row subset of the same structure);
-        returns (stored_tree, WriteStats)."""
-        if vectors is None:
-            vectors = self.vectors_for(Priority.LOW)
+              vectors: Sequence) -> Tuple[Any, WriteStats]:
+        """Diff-write a full tree (or a row subset of the same structure)
+        with the per-leaf operands ``vectors`` (``vectors_for``); returns
+        (stored_tree, WriteStats)."""
         olds, news = self._flat(old_tree, new_tree)
         stored = []
         acc = WriteStats.zero(self.device)
@@ -138,14 +130,12 @@ class WritePlan:
         return T.unflatten(list(self.paths), stored), acc
 
     def write_columns(self, key: np.ndarray, old_tree: Any, new_tree: Any,
-                      pos: torch.Tensor, vectors: Optional[Sequence] = None
+                      pos: torch.Tensor, vectors: Sequence
                       ) -> Tuple[Any, WriteStats]:
         """Column-scoped decode diff-write: sequence-axis leaves write only
         the ring column at ``pos % C`` per slot (``pos`` is the (B,)
         int64 position vector); the accounting equals a full diff because
         everything outside the column is unchanged."""
-        if vectors is None:
-            vectors = self.vectors_for(Priority.LOW)
         olds, news = self._flat(old_tree, new_tree)
         stored = []
         acc = WriteStats.zero(self.device)
@@ -162,7 +152,7 @@ class WritePlan:
                 continue
             C = o.shape[ax]
             ishape = [1] * o.dim()
-            ishape[self.batch_axis] = pos.shape[0]
+            ishape[BATCH_AXIS] = pos.shape[0]
             gshape = o.shape[:ax] + (1,) + o.shape[ax + 1:]
             idx = (pos % C).reshape(ishape).expand(gshape)
             o_col = torch.gather(o, ax, idx)

@@ -34,13 +34,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.energy_model import (StepEnergyMeter, add_slot_stats,
                                            zero_slot_stats)
 from repro_torch.core.extent_table import QualityController
-from repro_torch.core.priority import Priority, kv_cache_policy
+from repro_torch.core.priority import Priority
 from repro_torch.device import resolve_device
 from repro_torch.memory import WritePlan, WriteStats, default_backend
+from repro_torch.memory.plan import BATCH_AXIS
 from repro_torch.models import ModelApi, get_model
-
-#: cache leaves carry the request/slot dimension at axis 1
-BATCH_AXIS = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,9 +83,8 @@ class ServingEngine:
         self.backend = serve_cfg.backend or default_backend(self.device)
         cache_like = self.api.init_cache(1, serve_cfg.max_seq, "meta")
         self.plan = WritePlan.for_tree(
-            cache_like, device=self.device, policy=kv_cache_policy,
-            backend=self.backend, axes=self.api.cache_axes(),
-            batch_axis=BATCH_AXIS)
+            cache_like, device=self.device, backend=self.backend,
+            axes=self.api.cache_axes())
 
     def vectors_for_floor(self, floor: Priority = Priority.LOW) -> Tuple:
         return self.plan.vectors_for(floor)

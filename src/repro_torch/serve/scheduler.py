@@ -103,13 +103,11 @@ def _stack_prompts(requests: Sequence[Request]) -> Dict[str, torch.Tensor]:
 class ContinuousScheduler:
     """Admission/completion loop over one engine's slot pool."""
 
-    def __init__(self, engine: ServingEngine, capacity: int,
-                 max_burst: Optional[int] = None):
+    def __init__(self, engine: ServingEngine, capacity: int):
         assert capacity >= 1
         self.eng = engine
         self.pool = SlotPool(engine.api, capacity, engine.scfg.max_seq,
                              engine.device)
-        self.max_burst = max_burst
         self.meter = StepEnergyMeter()
         self._tokens: Dict[int, List[Tuple[torch.Tensor, int, int]]] = {}
         self._remaining: Dict[int, int] = {}
@@ -244,8 +242,6 @@ class ContinuousScheduler:
             nxt = pending.next_arrival()
             if nxt is not None and nxt > clock:
                 n = min(n, nxt - clock)
-            if self.max_burst:
-                n = min(n, self.max_burst)
             n = max(int(n), 1)
             active = pool.active_mask()
             vectors = eng.vectors_for_floor(self._floor())

@@ -14,9 +14,11 @@ Two ways to hold it:
   bits, so they can only be exact when the KV values are; the port's
   model differs from XLA's in the last bits (see test_torch_models.py).
   Tokens and the step/burst/table counts stay exact; flips and energies
-  are held at 2% per request (measured under 0.6%). Error counts are
-  draws over those flips, so they are held to three Poisson standard
-  deviations (the HIGH-quality request fails ~17 of 62k flips)."""
+  are held at 1.5% per request (largest measured: 0.61% and 0.52%, the
+  last request). Error counts are draws over those flips, so they are
+  held to three Poisson standard deviations of the reference's count
+  (largest measured: 1.2, the last request; the HIGH-quality request
+  fails 16 of 62k flips)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -142,8 +144,8 @@ def test_scheduler_with_port_model(setup):
     for rid, r in ref["requests"].items():
         p = rep["requests"][rid]
         for k in ("flips", "energy_pj"):
-            assert p[k] == pytest.approx(r[k], rel=2e-2), (rid, k)
-        assert abs(p["errors"] - r["errors"]) <= 3 * r["errors"] ** 0.5 + 2
+            assert p[k] == pytest.approx(r[k], rel=1.5e-2), (rid, k)
+        assert abs(p["errors"] - r["errors"]) <= 3 * r["errors"] ** 0.5
 
     assert rep["total"]["bits_total"] == ref["total"]["bits_total"]
 
@@ -207,3 +209,16 @@ def test_launcher_on_cpu(capsys):
                 "2", "--prompt-len", "6", "--new-tokens", "3"])
     out = capsys.readouterr().out
     assert "generated (2, 3) tokens" in out and "backend=lanes_ref" in out
+
+
+def test_steady_burst_repeats_its_steps():
+    """The decode-step setup the profiler and the chip smoke test time:
+    every call decodes the same steps from the same prefilled pool."""
+    from repro_torch.launch.profile import steady_burst
+    cfg = get_config(ARCH).reduced()
+    eng = ServingEngine(cfg, ServeConfig(max_seq=16), device="cpu")
+    run = steady_burst(eng, batch=2, prompt_len=8)
+    a, b = run(3), run(3)
+    assert tuple(a[-1].shape) == (3, 2)
+    torch.testing.assert_close(a[-1], b[-1], rtol=0, atol=0)
+    assert a[4].host_dict() == b[4].host_dict()
