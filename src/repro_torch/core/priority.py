@@ -63,6 +63,14 @@ def uint_type(dtype: torch.dtype) -> torch.dtype:
             8: torch.uint64}[dtype.itemsize]
 
 
+def int_type(dtype: torch.dtype) -> torch.dtype:
+    """The signed integer dtype of ``dtype``'s width: the port's bit view
+    of a float word (torch has no shifts or compares for uint16/uint32 on
+    the CPU), the counterpart of the reference's ``uint_type`` views."""
+    return {1: torch.int8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[dtype.itemsize]
+
+
 def mantissa_bits(dtype: torch.dtype) -> int:
     return {torch.bfloat16: 7, torch.float16: 10,
             torch.float32: 23}.get(dtype, 0)

@@ -1,4 +1,5 @@
-"""Write-error-rate model (paper Eq. 1) and the CMP pulse-occupancy factor.
+"""Write-error-rate model (paper Eq. 1), the CMP pulse-occupancy factor and
+the thermal switching probability of a stored bit (Eq. 14-15).
 
 Host-side float32 numpy: these functions only calibrate the driver's
 level table (twenty constants), so they run once per process, never on
@@ -14,6 +15,8 @@ to the JAX package's:
     in ten;
   * the trapezoid sum adds its 63 terms in XLA's CPU row-reduction order
     (a 32-wide vector accumulator, then the scalar tail);
+  * the retention rates (``switching_probability``) keep the reference's
+    ``clip(d (1 - v), -60, 60)`` and its float32 ``1 - exp(-t/tau)``;
   * the grid of pulse fractions is ``i / 63`` by true division — the
     reference's serving path calibrates under
     ``jax.ensure_compile_time_eval`` (``leaf_vectors``), where
@@ -119,3 +122,22 @@ def expected_pulse_fraction(t_w, i_rel, delta, n_grid: int = 64
     terms = (dx * (vals[1:] + vals[:-1]).astype(f32)).astype(f32)
     integral = f32(f32(0.5) * _row_sum_f32(terms))
     return f32(np.clip(integral, f32(0.0), f32(1.0)))
+
+
+def switching_time(delta, v_rel, tau0: float = 1.0e-9) -> np.ndarray:
+    """Paper Eq. 15: tau = tau0 exp(Delta (1 - V/Vc0)), the mean thermal
+    switching time under a sub-critical voltage V."""
+    d = np.asarray(delta, f32)
+    v = np.asarray(v_rel, f32)
+    arg = np.clip((d * (f32(1.0) - v).astype(f32)).astype(f32),
+                  f32(-60.0), f32(60.0))
+    return (f32(tau0) * _exp_f32(arg)).astype(f32)
+
+
+def switching_probability(t_p, delta, v_rel, tau0: float = 1.0e-9
+                          ) -> np.ndarray:
+    """Paper Eq. 14: P_sw = 1 - exp(-t_p / tau(Delta, V)) — the retention
+    decay probability of one stored bit over a dwell ``t_p`` at V = 0."""
+    tau = switching_time(delta, v_rel, tau0)
+    x = (-np.asarray(t_p, f32) / tau).astype(f32)
+    return (f32(1.0) - _exp_f32(x)).astype(f32)

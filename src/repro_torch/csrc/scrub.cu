@@ -1,0 +1,168 @@
+// Scrub (corrective re-write) over uint32 lanes, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel
+// src/repro/kernels/scrub/kernel.py::scrub_kernel.
+// It computes the same function, lane by lane instead of block by block:
+// for each 32-bit lane with decay mask m and each bit plane b set in m,
+//   corrected = stored ^ m
+//   to_ap     = bit b of corrected           (the re-write's direction)
+//   u         = fmix32((lane * 2654435761) ^ (b * 0x9E3779B9) ^ seed)
+//   fail      = u < (to_ap ? thr01[b] : thr10[b])
+//   scrubbed  = corrected ^ fail_mask,  residual = fail_mask
+// and every re-written bit pays e01[b] or e10[b], failed or not. Per-block
+// partial sums of the energy (f32) and of the 0->1 re-writes, 1->0
+// re-writes and failed re-writes (int32) are written one per block; the
+// wrapper sums them in a fixed order (no float atomics), so a call is
+// deterministic.
+//
+// The counter hash sees only the flat lane index, so any thread/block
+// decomposition gives the same bits as the TPU kernel and the plain
+// PyTorch twin (repro_torch/kernels/scrub/ref.py).
+//
+// Bound: memory. Each lane reads 8 bytes (stored, mask) and writes 8
+// (scrubbed, residual): 16 bytes per lane against 3.35 TB/s of HBM. A
+// whole K or V leaf of qwen2.5-3b's pool at capacity 4 is 5,308,416 lanes,
+// 0.0254 ms at that rate. Decay masks are sparse (about 1e-5 of the
+// mantissa bits per step at 350 K), so almost every lane takes the
+// mask == 0 early-out: it copies stored and writes a zero residual at no
+// energy (the CMP skip applied to scrubbing). Only the set bits of a
+// nonzero mask are visited (find-first-set loop), never all 32 planes.
+//
+// Design: a grid-stride loop, one lane per thread per iteration, the 4x32
+// threshold/energy operands staged in shared memory once per block,
+// warp-shuffle then shared-memory reduction of the four statistics, one
+// partial per block. Later work: 16-byte vector loads, and walking a
+// column window of the cache in place instead of a gathered copy.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kPlanes = 32;
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+__global__ void __launch_bounds__(kThreads)
+scrub_kernel(const uint32_t* __restrict__ stored,
+             const uint32_t* __restrict__ mask,
+             uint32_t* __restrict__ scrubbed,
+             uint32_t* __restrict__ residual,
+             int64_t n_lanes, uint32_t seed,
+             const uint32_t* __restrict__ thr01,
+             const uint32_t* __restrict__ thr10,
+             const float* __restrict__ e01,
+             const float* __restrict__ e10,
+             float* __restrict__ part_energy,
+             int32_t* __restrict__ part_counts) {
+  __shared__ uint32_t s_thr01[kPlanes], s_thr10[kPlanes];
+  __shared__ float s_e01[kPlanes], s_e10[kPlanes];
+  __shared__ float r_energy[kThreads / 32];
+  __shared__ int32_t r_counts[3][kThreads / 32];
+
+  const int tid = threadIdx.x;
+  if (tid < kPlanes) {
+    s_thr01[tid] = thr01[tid];
+    s_thr10[tid] = thr10[tid];
+    s_e01[tid] = e01[tid];
+    s_e10[tid] = e10[tid];
+  }
+  __syncthreads();
+
+  float energy = 0.f;
+  int32_t n01 = 0, n10 = 0, nerr = 0;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + tid; i < n_lanes;
+       i += stride) {
+    const uint32_t s = stored[i];
+    uint32_t m = mask[i];
+    if (m == 0u) {  // nothing decayed here: no re-write, no energy
+      scrubbed[i] = s;
+      residual[i] = 0u;
+      continue;
+    }
+    const uint32_t corrected = s ^ m;
+    // lane indices above 2^32 are refused by the wrapper: the hash takes
+    // the index modulo 2^32 exactly as the uint32 reference does
+    const uint32_t base = (uint32_t)i * 2654435761u ^ seed;
+    uint32_t fail_mask = 0u;
+    while (m) {
+      const int b = __ffs(m) - 1;
+      m &= m - 1u;
+      const uint32_t bit = 1u << b;
+      const bool to_ap = (corrected & bit) != 0u;
+      const uint32_t u = fmix32(base ^ ((uint32_t)b * 0x9E3779B9u));
+      const bool fail = u < (to_ap ? s_thr01[b] : s_thr10[b]);
+      fail_mask |= fail ? bit : 0u;
+      energy += to_ap ? s_e01[b] : s_e10[b];
+      n01 += to_ap;
+      n10 += !to_ap;
+      nerr += fail;
+    }
+    scrubbed[i] = corrected ^ fail_mask;
+    residual[i] = fail_mask;
+  }
+
+  // block reduction: warp shuffles, then the first warp over the warps
+  for (int off = 16; off > 0; off >>= 1) {
+    energy += __shfl_down_sync(0xffffffffu, energy, off);
+    n01 += __shfl_down_sync(0xffffffffu, n01, off);
+    n10 += __shfl_down_sync(0xffffffffu, n10, off);
+    nerr += __shfl_down_sync(0xffffffffu, nerr, off);
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  if (lane == 0) {
+    r_energy[warp] = energy;
+    r_counts[0][warp] = n01;
+    r_counts[1][warp] = n10;
+    r_counts[2][warp] = nerr;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool live = lane < kThreads / 32;
+    energy = live ? r_energy[lane] : 0.f;
+    n01 = live ? r_counts[0][lane] : 0;
+    n10 = live ? r_counts[1][lane] : 0;
+    nerr = live ? r_counts[2][lane] : 0;
+    for (int off = 16; off > 0; off >>= 1) {
+      energy += __shfl_down_sync(0xffffffffu, energy, off);
+      n01 += __shfl_down_sync(0xffffffffu, n01, off);
+      n10 += __shfl_down_sync(0xffffffffu, n10, off);
+      nerr += __shfl_down_sync(0xffffffffu, nerr, off);
+    }
+    if (lane == 0) {
+      part_energy[blockIdx.x] = energy;
+      part_counts[blockIdx.x] = n01;
+      part_counts[gridDim.x + blockIdx.x] = n10;
+      part_counts[2 * gridDim.x + blockIdx.x] = nerr;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int scrub_threads() { return kThreads; }
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// part_counts holds 3 x grid int32: flips01, flips10, errors.
+extern "C" int scrub_launch(const void* stored, const void* mask,
+                            void* scrubbed, void* residual, int64_t n_lanes,
+                            uint32_t seed, const void* thr01,
+                            const void* thr10, const void* e01,
+                            const void* e10, void* part_energy,
+                            void* part_counts, int grid, void* stream) {
+  scrub_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)stored, (const uint32_t*)mask, (uint32_t*)scrubbed,
+      (uint32_t*)residual, n_lanes, seed, (const uint32_t*)thr01,
+      (const uint32_t*)thr10, (const float*)e01, (const float*)e10,
+      (float*)part_energy, (int32_t*)part_counts);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,63 @@
+"""Build a hand-written CUDA source of ``csrc/`` into a shared library.
+
+Every kernel of the port is a ``csrc/<name>.cu`` file with a plain C
+interface, compiled with ``nvcc`` for ``sm_90a`` into
+``build/torch_kernels/lib<name>.so`` (``build/`` is listed in
+.gitignore) and bound with ``ctypes`` by its wrapper. ``build(name)``
+compiles when the library is missing or older than its source, so the
+first call of a wrapper on the card builds it and later calls reuse it.
+"""
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Tuple
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+#: build outputs live in the checkout's ``build/`` (listed in .gitignore)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: grid cap for the kernels' grid-stride loops (132 SMs x 8 resident
+#: blocks of 256 threads)
+MAX_GRID = 132 * 8
+
+
+def source(name: str) -> Path:
+    return CSRC / f"{name}.cu"
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the port's CUDA kernels are "
+                           "built from source on the CUDA host")
+    return found
+
+
+def build(name: str, force: bool = False) -> Tuple[Path, float]:
+    """Compile ``csrc/<name>.cu`` if its library is missing or older than
+    the source. Returns (library path, seconds spent compiling)."""
+    src = source(name)
+    lib = BUILD_DIR / f"lib{name}.so"
+    if (not force and lib.exists()
+            and lib.stat().st_mtime >= src.stat().st_mtime):
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, time.perf_counter() - t0

@@ -2,9 +2,10 @@
 
 The kernel replaces ``repro.kernels.extent_write.kernel.extent_write_kernel``
 (the Pallas TPU kernel). It is built with ``nvcc`` into a shared library
-with a plain C interface at first use and bound with ``ctypes`` — pointers
-and the stream pass as ``c_void_p``; the C function returns
-``cudaGetLastError()`` and the wrapper raises if that is not 0.
+with a plain C interface at first use (``kernels.build``) and bound
+with ``ctypes`` — pointers and the stream pass as ``c_void_p``; the C
+function returns ``cudaGetLastError()`` and the wrapper raises if that
+is not 0.
 
 Memory-bound: 12 bytes per lane (read old and new, write stored) against
 the card's 3.35 TB/s. The decode column write (~18k lanes per leaf at
@@ -19,56 +20,12 @@ launches and nothing else.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import build as B
 from repro_torch.kernels.extent_write import ref as R
-
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "extent_write.cu"
-#: build outputs live in the checkout's ``build/`` (listed in .gitignore)
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-#: grid cap for the grid-stride loop (132 SMs x 8 resident blocks)
-MAX_GRID = 132 * 8
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").exists():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the extent_write kernel is "
-                           "built from source on the CUDA host")
-    return found
-
-
-def build(force: bool = False) -> Tuple[Path, float]:
-    """Compile the kernel library if it is missing or older than its
-    source. Returns (library path, seconds spent compiling)."""
-    lib = BUILD_DIR / "libextent_write.so"
-    if (not force and lib.exists()
-            and lib.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return lib, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, time.perf_counter() - t0
 
 
 class ExtentWriteCuda:
@@ -82,7 +39,7 @@ class ExtentWriteCuda:
 
     def _load(self):
         if self._fn is None:
-            lib_path, _ = build()
+            lib_path, _ = B.build("extent_write")
             lib = ctypes.CDLL(str(lib_path))
             fn = lib.extent_write_launch
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
@@ -125,7 +82,7 @@ class ExtentWriteCuda:
         if n >= 2 ** 32:
             raise ValueError("extent_write: lane index must fit 32 bits")
         fn = self._load()
-        grid = max(1, min(MAX_GRID, -(-n // self._threads)))
+        grid = max(1, min(B.MAX_GRID, -(-n // self._threads)))
         stored = torch.empty_like(new_u)
         part_e = torch.empty((grid,), dtype=torch.float32, device=dev)
         part_c = torch.empty((3, grid), dtype=torch.int32, device=dev)

@@ -44,8 +44,9 @@ def steady_burst(eng: ServingEngine, batch: int, prompt_len: int,
                  seed: int = 0):
     """Prefill a full pool of ``batch`` random prompts of ``prompt_len``
     tokens (drawn from ``seed``) at the LOW floor; returns ``run(n)``,
-    which decodes ``n`` fused steps from that state. The state is not
-    carried over, so every call repeats the same steps."""
+    which decodes ``n`` fused steps from that state (with the retention
+    decay when the engine has it on). The state is not carried over, so
+    every call repeats the same steps."""
     device = eng.device
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, eng.cfg.vocab_size, (batch, prompt_len))).to(device)
@@ -54,11 +55,16 @@ def steady_burst(eng: ServingEngine, batch: int, prompt_len: int,
                                      rng.PRNGKey(seed), vec)
     pos = torch.full((batch,), prompt_len, dtype=torch.int64, device=device)
     active = torch.ones((batch,), dtype=torch.bool, device=device)
+    life = rvec = None
+    if eng.life_plan is not None:
+        life = eng.life_plan.init_state(cache)
+        rvec = eng.retention_vectors_for(Priority.LOW)
 
     def run(n: int):
         return eng.burst(eng.params, tok, cache, pos, key,
                          WriteStats.zero(device),
-                         zero_slot_stats(batch, device), active, vec, n=n)
+                         zero_slot_stats(batch, device), active, vec, life,
+                         rvec, n=n)
 
     return run
 

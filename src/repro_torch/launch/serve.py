@@ -4,6 +4,8 @@
       --capacity 3 --arrival-every 2 --new-tokens 16 --quality chat=high
   python -m repro_torch.launch.serve --trace tests/fixtures/trace_smoke.jsonl
   python -m repro_torch.launch.serve --monolithic --batch 4
+  python -m repro_torch.launch.serve --ambient-k 350 \
+      --retention-scale 1000 --scrub-policy periodic --scrub-interval 8
   python -m repro_torch.launch.serve --reduced --device cpu ...   # CPU
 
 Runs on CUDA unless ``--device cpu``; ``--reduced`` shrinks the config
@@ -11,6 +13,12 @@ Runs on CUDA unless ``--device cpu``; ``--reduced`` shrinks the config
 the ``repro_torch.memory`` registry (default: ``cuda`` on a CUDA device,
 ``lanes_ref`` on the CPU). Synthetic prompts are drawn with numpy and
 differ from the JAX launcher's; replay a trace for a like-for-like run.
+
+``--retention-scale`` (seconds of modelled dwell per decode step) turns
+on retention decay at ``--ambient-k`` kelvin; ``--scrub-policy`` runs
+background scrub passes between bursts (whole leaves, or windows of
+``--scrub-cols`` ring columns) and implies ``--retention-scale 1000``
+when that is left at 0. The report then ends with the lifetime ledger.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.priority import Priority
 from repro_torch.device import resolve_device
 from repro_torch.memory import available_backends
+from repro_torch.reliability import make_scrub_policy
 from repro_torch.serve import (ContinuousScheduler, ServeConfig,
                                ServingEngine, synthetic_requests)
 from repro_torch.telemetry import render_report
@@ -57,6 +66,21 @@ def main(argv=None):
     ap.add_argument("--quality", action="append", default=[],
                     metavar="APP=LEVEL",
                     help="tag an app block (low/mid/high/exact); repeats")
+    ap.add_argument("--ambient-k", type=float, default=300.0,
+                    help="die ambient temperature (kelvin) for the "
+                         "retention model")
+    ap.add_argument("--retention-scale", type=float, default=0.0,
+                    help="modelled device dwell (seconds) per decode "
+                         "step; 0 disables the retention model")
+    ap.add_argument("--scrub-policy", default="none",
+                    choices=("none", "periodic", "wear_aware",
+                             "quality_floor"),
+                    help="background scrub policy (continuous mode; "
+                         "implies --retention-scale 1000 when that is 0)")
+    ap.add_argument("--scrub-interval", type=int, default=8,
+                    help="base scrub interval in decode steps")
+    ap.add_argument("--scrub-cols", type=int, default=0,
+                    help="columns per scrub pass (0 = whole leaves)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -64,10 +88,16 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
 
+    retention_scale = args.retention_scale
+    if args.scrub_policy != "none" and retention_scale == 0.0:
+        retention_scale = 1000.0  # scrubbing without decay is a no-op
+
     def serve_cfg(max_seq: int, new_tokens: int) -> ServeConfig:
         return ServeConfig(max_seq=max_seq, max_new_tokens=new_tokens,
                            extent_enabled=not args.no_extent,
-                           backend=args.backend)
+                           backend=args.backend,
+                           retention_scale=retention_scale,
+                           ambient_k=args.ambient_k)
 
     if args.monolithic:
         toks = np.random.default_rng(0).integers(
@@ -105,7 +135,13 @@ def main(argv=None):
     for spec in args.quality:
         app, _, level = spec.partition("=")
         eng.controller.tag("kv_request", app, Priority.coerce(level))
-    report = ContinuousScheduler(eng, capacity=args.capacity).run(reqs)
+    scrub_policy = None
+    if args.scrub_policy != "none":
+        scrub_policy = make_scrub_policy(args.scrub_policy,
+                                         interval=args.scrub_interval,
+                                         cols_per_pass=args.scrub_cols)
+    report = ContinuousScheduler(eng, capacity=args.capacity,
+                                 scrub_policy=scrub_policy).run(reqs)
     for line in render_report(report, backend=eng.backend,
                               show_extent=not args.no_extent):
         print(line)

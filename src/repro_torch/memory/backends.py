@@ -1,21 +1,25 @@
 """Pluggable write-path backends and the string-keyed registry.
 
 The counterpart of ``repro.memory.backends``: every implementation of the
-EXTENT write sits behind one protocol,
+EXTENT write and of the scrub (corrective re-write) sits behind one
+protocol,
 
     stored, stats = backend.leaf_write(key, old, new, leaf_vectors)
+    scrubbed, residual, stats = backend.leaf_scrub(key, stored, mask,
+                                                   leaf_vectors)
 
 and is selected by name. Registered here:
 
-  * ``"lanes_ref"`` — the plain-PyTorch lane twin (any device);
-  * ``"cuda"``      — the hand-written CUDA kernel (the card's default);
-    on CPU tensors its wrapper runs the twin;
+  * ``"lanes_ref"`` — the plain-PyTorch lane twins (any device);
+  * ``"cuda"``      — the hand-written CUDA kernels (the card's default);
+    on CPU tensors their wrappers run the twins;
   * ``"exact"``     — passthrough, no approximation model.
 
-The eager bit-unpacked ``"oracle"`` backend and the scrub protocol belong
-to later slices. ``key`` is a host threefry key (``repro_torch.rng``);
-the backend turns it into the kernel's scalar seed on the host, so a
-write never reads the device.
+The eager bit-unpacked ``"oracle"`` backend belongs to a later slice, and
+so does the scrub fallback for widths without lane packing: every KV leaf
+packs. ``key`` is a host threefry key (``repro_torch.rng``); the backend
+turns it into the kernel's scalar seed on the host, so neither a write
+nor a scrub reads the device.
 """
 from __future__ import annotations
 
@@ -28,6 +32,9 @@ from repro_torch import rng
 from repro_torch.kernels.extent_write import kernel as xkernel
 from repro_torch.kernels.extent_write import ops as xops
 from repro_torch.kernels.extent_write import ref as xref
+from repro_torch.kernels.scrub import kernel as skernel
+from repro_torch.kernels.scrub import ops as sops
+from repro_torch.kernels.scrub import ref as sref
 from repro_torch.memory.stats import WriteStats
 
 
@@ -50,32 +57,54 @@ class Backend(Protocol):
                    ) -> Tuple[torch.Tensor, WriteStats]:
         ...
 
+    def leaf_scrub(self, key: np.ndarray, stored: torch.Tensor,
+                   mask: torch.Tensor, lv: LeafVectors
+                   ) -> Tuple[torch.Tensor, torch.Tensor, WriteStats]:
+        """Corrective re-write of the decayed bits of ``stored`` (``mask``
+        is the element-space decayed-bit mask, an integer tensor of the
+        stored dtype's width and shape). Returns (scrubbed, residual mask,
+        WriteStats); corrections that fail stay set in the residual."""
+        ...
+
 
 def _bits(x: torch.Tensor) -> int:
     return x.numel() * x.element_size() * 8
 
 
-class LaneBackend:
-    """Lane-packed write through ``impl`` (the twin or the CUDA wrapper),
-    counter RNG over flat lane indices."""
+def _lane_stats(bits: int, device, st, lv: LeafVectors) -> WriteStats:
+    flips = st["flips01"] + st["flips10"]
+    return WriteStats.for_bits(
+        bits, device, energy_pj=st["energy_pj"],
+        # lane stats reduce per leaf, not per plane: report the plan
+        # entry's slowest driver whenever anything flipped
+        latency_ns=torch.where(flips > 0, lv.lat_max,
+                               torch.zeros_like(lv.lat_max)),
+        flips01=st["flips01"], flips10=st["flips10"], errors=st["errors"])
 
-    def __init__(self, name: str, impl: xops.LaneWrite):
+
+class LaneBackend:
+    """Lane-packed write and scrub through ``impl`` and ``scrub_impl``
+    (the twins or the CUDA wrappers), counter RNG over flat lane
+    indices."""
+
+    def __init__(self, name: str, impl: xops.LaneWrite,
+                 scrub_impl: sops.LaneScrub):
         self.name = name
         self.impl = impl
+        self.scrub_impl = scrub_impl
 
     def leaf_write(self, key, old, new, lv: LeafVectors):
         stored, st = xops.extent_write(
             rng.seed_u32(key), old, new,
             (lv.thr01, lv.thr10, lv.le01, lv.le10), self.impl)
-        flips = st["flips01"] + st["flips10"]
-        return stored, WriteStats.for_bits(
-            _bits(old), old.device, energy_pj=st["energy_pj"],
-            # lane stats reduce per leaf, not per plane: report the plan
-            # entry's slowest driver whenever anything flipped
-            latency_ns=torch.where(flips > 0, lv.lat_max,
-                                   torch.zeros_like(lv.lat_max)),
-            flips01=st["flips01"], flips10=st["flips10"],
-            errors=st["errors"])
+        return stored, _lane_stats(_bits(old), old.device, st, lv)
+
+    def leaf_scrub(self, key, stored, mask, lv: LeafVectors):
+        scrubbed, residual, st = sops.scrub_write(
+            rng.seed_u32(key), stored, mask,
+            (lv.thr01, lv.thr10, lv.le01, lv.le10), self.scrub_impl)
+        return scrubbed, residual, _lane_stats(_bits(stored),
+                                               stored.device, st, lv)
 
 
 class ExactBackend:
@@ -86,6 +115,14 @@ class ExactBackend:
         del key, lv
         assert old.shape == new.shape and old.dtype == new.dtype
         return new, WriteStats.for_bits(_bits(new), new.device)
+
+    def leaf_scrub(self, key, stored, mask, lv: LeafVectors):
+        """Perfect, free correction: the decayed bits are restored, the
+        residual is clear, only the addressed bits are counted."""
+        del key, lv
+        bits = stored.view(mask.dtype)
+        return ((bits ^ mask).view(stored.dtype), torch.zeros_like(mask),
+                WriteStats.for_bits(_bits(stored), stored.device))
 
 
 _FACTORIES: Dict[str, Callable[[], Backend]] = {}
@@ -116,7 +153,9 @@ def default_backend(device: torch.device) -> str:
 
 
 register_backend("lanes_ref",
-                 lambda: LaneBackend("lanes_ref", xref.extent_write_ref))
+                 lambda: LaneBackend("lanes_ref", xref.extent_write_ref,
+                                     sref.scrub_ref))
 register_backend("cuda",
-                 lambda: LaneBackend("cuda", xkernel.extent_write_cuda))
+                 lambda: LaneBackend("cuda", xkernel.extent_write_cuda,
+                                     skernel.scrub_cuda))
 register_backend("exact", ExactBackend)

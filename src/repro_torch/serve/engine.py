@@ -9,12 +9,20 @@ One ``WritePlan`` is resolved at construction; the backend is a registry
 name (``cuda`` on a CUDA device, ``lanes_ref`` on the CPU by default).
 
 A decode *burst* of ``n`` steps is a Python loop of fused steps
-(decode -> column write -> greedy sample -> stats) that never reads the
-device: the RNG key schedule runs on the host (``repro_torch.rng``), every
-carried value stays on the device, and stats accumulate into one
-device-resident ``WriteStats``. On a CUDA device the burst runs under
+(decode -> column write -> retention decay -> greedy sample -> stats)
+that never reads the device: the RNG key schedule runs on the host
+(``repro_torch.rng``), every carried value stays on the device, and
+stats accumulate into one device-resident ``WriteStats``. On a CUDA device the burst runs under
 ``torch.cuda.set_sync_debug_mode("error")``, so any host sync inside it
 raises — the port's form of the reference's transfer guard.
+
+With ``retention_scale > 0`` a ``LifetimePlan`` shadows the write plan
+(``repro_torch.reliability``): after each step's column write the decay
+record of the re-written columns is cleared and every stored bit of the
+approximate leaves dwells one step at the ambient temperature; ``scrub``
+runs one corrective pass between bursts. The decay streams fold off the
+step's write key, so the write and sampling schedule is the same with
+retention on or off, and a 300 K run equals a retention-off run.
 
 Lockstep contract (as in the reference): admitting a whole pool at once
 and decoding it reproduces ``generate`` on the same batch bit for bit.
@@ -39,6 +47,7 @@ from repro_torch.device import resolve_device
 from repro_torch.memory import WritePlan, WriteStats, default_backend
 from repro_torch.memory.plan import BATCH_AXIS
 from repro_torch.models import ModelApi, get_model
+from repro_torch.reliability import LifetimePlan, scrub_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +59,11 @@ class ServeConfig:
     #: write-path backend (a repro_torch.memory registry name); None picks
     #: the kernel ("cuda") on a CUDA device and the twin on the CPU
     backend: Optional[str] = None
+    #: modelled device dwell (seconds) per decode step; 0 disables the
+    #: retention model (repro_torch.reliability)
+    retention_scale: float = 0.0
+    #: die ambient temperature (kelvin) of the retention model
+    ambient_k: float = 300.0
 
 
 def _row_mask(active: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -85,9 +99,23 @@ class ServingEngine:
         self.plan = WritePlan.for_tree(
             cache_like, device=self.device, backend=self.backend,
             axes=self.api.cache_axes())
+        # per-(leaf, floor, ambient) decay thresholds resolved once; an
+        # ambient schedule swaps them between bursts
+        self.life_plan = None
+        if serve_cfg.retention_scale > 0.0:
+            self.life_plan = LifetimePlan.for_tree(
+                cache_like, self.plan, ambient_k=serve_cfg.ambient_k,
+                dwell_s=serve_cfg.retention_scale)
 
     def vectors_for_floor(self, floor: Priority = Priority.LOW) -> Tuple:
         return self.plan.vectors_for(floor)
+
+    def retention_vectors_for(self, floor: Priority = Priority.LOW,
+                              ambient_k: Optional[float] = None) -> Tuple:
+        """Per-leaf decay thresholds for one (floor, ambient) pair. Only
+        valid with retention on."""
+        assert self.life_plan is not None, "retention_scale == 0"
+        return self.life_plan.vectors_for(floor, ambient_k=ambient_k)
 
     def prompt_len(self, batch: Dict[str, torch.Tensor]) -> int:
         return self.api.prompt_len(batch)
@@ -110,10 +138,13 @@ class ServingEngine:
         return self._sample(logits), cache, key, acc
 
     def burst(self, params, tok, cache, pos, key: np.ndarray, acc,
-              slot_acc, active, vectors, *, n: int):
+              slot_acc, active, vectors, life=None, rvec=None, *, n: int):
         """``n`` fused decode steps. Inactive rows keep their cache bits,
-        position and token. Returns (tok, cache, pos, key, acc, slot_acc,
+        position and token. ``life``/``rvec`` (the lifetime state and the
+        decay thresholds) are required with retention on and ignored
+        otherwise. Returns (tok, cache, pos, key, acc, slot_acc, life,
         tokens (n, B))."""
+        retention = self.life_plan is not None
         act_i = active.to(pos.dtype)
         toks = []
         with _no_host_sync(self.device):
@@ -128,10 +159,24 @@ class ServingEngine:
                         k_write, cache, new_cache, pos, vectors)
                     acc = acc + st
                     slot_acc = add_slot_stats(slot_acc, st, active)
+                if retention:
+                    # the step re-wrote the active slots' ring columns:
+                    # their decay record is void; then every stored bit
+                    # of the approximate leaves dwells one step
+                    life = self.life_plan.clear_written(life, pos, active)
+                    new_cache, life = self.life_plan.advance(
+                        k_write, new_cache, life, rvec)
                 tok = torch.where(active, self._sample(logits), tok)
                 cache, pos = new_cache, pos + act_i
                 toks.append(tok)
-        return tok, cache, pos, key, acc, slot_acc, torch.stack(toks)
+        return tok, cache, pos, key, acc, slot_acc, life, torch.stack(toks)
+
+    def scrub(self, key: np.ndarray, cache, life, vectors, *,
+              enabled=None, cols: Optional[int] = None, cursor: int = 0):
+        """One corrective scrub pass through the write path's backend
+        (``reliability.scrub_tree``). Returns (cache, life, WriteStats)."""
+        return scrub_tree(key, cache, life, self.life_plan, vectors,
+                          enabled=enabled, cols=cols, cursor=cursor)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return torch.argmax(logits, dim=-1)
@@ -153,17 +198,29 @@ class ServingEngine:
         active = torch.ones((B,), dtype=torch.bool, device=self.device)
         acc = WriteStats.zero(self.device)
         slot_acc = zero_slot_stats(B, self.device)
+        life = rvec = None
+        if self.life_plan is not None:
+            life = self.life_plan.init_state(cache)
+            rvec = self.retention_vectors_for(Priority.LOW)
         if mnt > 1:
-            _, cache, pos, key, acc, slot_acc, toks = self.burst(
+            _, cache, pos, key, acc, slot_acc, life, toks = self.burst(
                 self.params, tok, cache, pos, key, acc, slot_acc, active,
-                vectors, n=mnt - 1)
+                vectors, life, rvec, n=mnt - 1)
             tokens = torch.cat([tok[:, None], toks.t()], dim=1)
         else:
             tokens = tok[:, None]
         if self.scfg.extent_enabled:
             self.meter.add_stream("kv_prefill", pre_acc.host_dict())
             self.meter.add_stream("kv_decode", acc.host_dict())
-        return tokens, self.meter.summary()
+        report = self.meter.summary()
+        if life is not None:
+            flips, decayed = torch.stack(
+                [life.retention_flips, life.decayed_bits()]).tolist()
+            report["retention"] = {
+                "ambient_k": self.scfg.ambient_k,
+                "dwell_s_per_step": self.scfg.retention_scale,
+                "flips": int(flips), "decayed_bits": int(decayed)}
+        return tokens, report
 
 
 @contextlib.contextmanager

@@ -9,8 +9,14 @@ report. Scheduling is host-predictable, so decisions never read the
 device; token fragments stay lazy device references until completion,
 and the device is read once per event (completions) and once at the end.
 
-Prefix linking, scrubbing, wear, retention, telemetry and sharding are
-later slices.
+With retention on (``ServeConfig.retention_scale > 0``) the scheduler
+owns the run's ``LifetimeState``: admissions clear the admitted rows'
+decay masks, bursts advance the decay (ending at every breakpoint of an
+optional ambient-temperature schedule), and after each burst a host-side
+scrub policy may run one corrective pass whose energy goes to the
+``kv_scrub`` stream; the report gains the lifetime ledger.
+
+Prefix linking, wear, telemetry and sharding are later slices.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import torch
 from repro_torch import rng
 from repro_torch.core.energy_model import StepEnergyMeter
 from repro_torch.core.priority import Priority
-from repro_torch.memory import WriteStats
+from repro_torch.memory import WriteStats, rng_streams
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.slots import SlotPool
 
@@ -103,9 +109,17 @@ def _stack_prompts(requests: Sequence[Request]) -> Dict[str, torch.Tensor]:
 class ContinuousScheduler:
     """Admission/completion loop over one engine's slot pool."""
 
-    def __init__(self, engine: ServingEngine, capacity: int):
+    def __init__(self, engine: ServingEngine, capacity: int,
+                 scrub_policy: Optional[Any] = None,
+                 ambient_schedule: Optional[Sequence[Tuple[int, float]]]
+                 = None):
         assert capacity >= 1
         self.eng = engine
+        self.scrub_policy = scrub_policy
+        #: piecewise-constant (step, kelvin) ambient overrides
+        self.ambient_schedule = (sorted(ambient_schedule)
+                                 if ambient_schedule else None)
+        self.life = None  # LifetimeState, owned per run()
         self.pool = SlotPool(engine.api, capacity, engine.scfg.max_seq,
                              engine.device)
         self.meter = StepEnergyMeter()
@@ -159,12 +173,71 @@ class ContinuousScheduler:
                 self.eng.params, batch, old_rows, key, vectors)
             self._acc_prefill = self.pool.admit(
                 ids, group, rows, tok, pos0, acc, self._acc_prefill)
+            if self.life is not None:
+                # the admitted rows were just prefill-written: their
+                # decay record restarts from zero
+                self.life = self.eng.life_plan.reset_rows(
+                    self.life, self.pool.index(ids))
             for j, r in enumerate(group):
                 self._tokens[r.rid] = [(tok, j, 1)]
                 self._remaining[r.rid] = r.new_tokens - 1
                 self._admitted[r.rid] = clock
             n_done += self._complete(clock)
         return key, n_done
+
+    # ----------------------------------------------------------- reliability
+    def _ambient_at(self, clock: int) -> Optional[float]:
+        """Ambient schedule lookup (None = the engine's configured
+        ambient)."""
+        if not self.ambient_schedule:
+            return None
+        t = None
+        for step, kelvin in self.ambient_schedule:
+            if step <= clock:
+                t = kelvin
+        return t
+
+    def _retention_vectors(self, clock: int) -> Tuple:
+        """Decay thresholds for the burst starting at ``clock``."""
+        return self.eng.retention_vectors_for(
+            self._floor(), ambient_k=self._ambient_at(clock))
+
+    def _maybe_scrub(self, clock: int, key) -> None:
+        """Idle-slot background scrubbing: when the host-side policy says a
+        pass is due, re-write the accumulated decay through the engine's
+        backend. The pass key folds the pass index off the carried decode
+        key, which the pass does not advance."""
+        eng, policy = self.eng, self.scrub_policy
+        if policy is None or self.life is None:
+            return
+        enabled = policy.plan_pass(clock, eng.plan.leaf_levels,
+                                   idle=self.pool.free_slots() > 0)
+        if enabled is None:
+            return
+        # the scrub re-resolves the quality of the blocks it re-writes
+        # through the table, in its own "scrub" scope so it never
+        # inflates the serve hit rate
+        floor = Priority.LOW
+        with eng.controller.table.scope("scrub"):
+            for i in self.pool.occupied():
+                r = self.pool.slot_req[i]
+                if r.app_id is not None or r.quality is not None:
+                    block = (r.app_id if r.app_id is not None
+                             else ("rid", r.rid))
+                    floor = max(floor, eng.controller.resolve_request(block))
+        cols = policy.cols_per_pass or None
+        k = rng.fold_in(key, rng_streams.SCHEDULER_SCRUB_PASS_OFFSET
+                        + self._scrub_passes)
+        self.pool.cache, self.life, st = eng.scrub(
+            k, self.pool.cache, self.life,
+            eng.vectors_for_floor(Priority(floor)), enabled=enabled,
+            cols=cols, cursor=self._scrub_cursor)
+        self._acc_scrub = self._acc_scrub + st
+        policy.record(clock)
+        self._scrub_passes += 1
+        if cols:
+            self._scrub_cursor = (self._scrub_cursor + cols) % \
+                eng.scfg.max_seq
 
     def _materialize_tokens(self, rid: int,
                             memo: Dict[int, np.ndarray]) -> List[int]:
@@ -223,6 +296,13 @@ class ContinuousScheduler:
         clock = decode_steps = bursts = 0
         self._acc_prefill = WriteStats.zero(eng.device)
         self._acc_decode = WriteStats.zero(eng.device)
+        self._acc_scrub = WriteStats.zero(eng.device)
+        self._scrub_passes = 0
+        self._scrub_cursor = 0
+        if self.scrub_policy is not None:
+            self.scrub_policy.reset()  # the serving clock restarts at 0
+        self.life = (eng.life_plan.init_state(pool.cache)
+                     if eng.life_plan is not None else None)
         eng.controller.table.reset_stats()
         while pending or pool.busy():
             nxt = pending.next_arrival()
@@ -242,13 +322,23 @@ class ContinuousScheduler:
             nxt = pending.next_arrival()
             if nxt is not None and nxt > clock:
                 n = min(n, nxt - clock)
+            if self.ambient_schedule and self.life is not None:
+                # an ambient breakpoint ends the burst: the decay
+                # thresholds are per-burst operands
+                for step, _ in self.ambient_schedule:
+                    if step > clock:
+                        n = min(n, step - clock)
+                        break
             n = max(int(n), 1)
             active = pool.active_mask()
             vectors = eng.vectors_for_floor(self._floor())
+            rvec = (self._retention_vectors(clock)
+                    if self.life is not None else None)
             (pool.tok, pool.cache, pool.pos, key, self._acc_decode,
-             pool.slot_acc, toks) = eng.burst(
+             pool.slot_acc, self.life, toks) = eng.burst(
                 eng.params, pool.tok, pool.cache, pool.pos, key,
-                self._acc_decode, pool.slot_acc, active, vectors, n=n)
+                self._acc_decode, pool.slot_acc, active, vectors,
+                self.life, rvec, n=n)
             for i in active_ids:
                 rid = pool.slot_req[i].rid
                 take = min(n, self._remaining[rid])
@@ -258,8 +348,14 @@ class ContinuousScheduler:
             decode_steps += n
             bursts += 1
             self._complete(clock)
-        self.meter.add_stream("kv_prefill", self._acc_prefill.host_dict())
-        self.meter.add_stream("kv_decode", self._acc_decode.host_dict())
+            self._maybe_scrub(clock, key)
+        pre_host = self._acc_prefill.host_dict()
+        dec_host = self._acc_decode.host_dict()
+        self.meter.add_stream("kv_prefill", pre_host)
+        self.meter.add_stream("kv_decode", dec_host)
+        if self.life is not None:
+            scrub_host = self._acc_scrub.host_dict()
+            self.meter.add_stream("kv_scrub", scrub_host)
         summary = self.meter.summary()
         summary.update({
             "requests": self._reports,
@@ -269,4 +365,25 @@ class ContinuousScheduler:
             "pool": pool.stats(),
             "extent_table": eng.controller.table.stats(),
         })
+        if self.life is not None:
+            # the lifetime ledger: write energy plus the scrub energy spent
+            # defending it, and the decay that slipped through
+            flips, decayed = torch.stack([self.life.retention_flips,
+                                          self.life.decayed_bits()]).tolist()
+            write_pj = pre_host["energy_pj"] + dec_host["energy_pj"]
+            scrub_pj = scrub_host["energy_pj"]
+            remap_pj = 0.0  # wear leveling is a later slice
+            summary["lifetime"] = {
+                "ambient_k": eng.scfg.ambient_k,
+                "dwell_s_per_step": eng.scfg.retention_scale,
+                "write_energy_pj": write_pj,
+                "scrub_energy_pj": scrub_pj,
+                "remap_energy_pj": remap_pj,
+                "lifetime_energy_pj": write_pj + scrub_pj + remap_pj,
+                "retention_flips": int(flips),
+                "residual_decayed_bits": int(decayed),
+                "scrub_passes": self._scrub_passes,
+                "scrub_policy": (self.scrub_policy.name
+                                 if self.scrub_policy else "none"),
+            }
         return summary

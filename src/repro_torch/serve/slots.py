@@ -66,13 +66,14 @@ class SlotPool:
             heapq.heappush(self._free, i)
         self.completions += len(slot_ids)
 
-    def _idx(self, slot_ids: Sequence[int]) -> torch.Tensor:
+    def index(self, slot_ids: Sequence[int]) -> torch.Tensor:
+        """``slot_ids`` as an int64 index tensor on the pool's device."""
         return torch.tensor(list(slot_ids), dtype=torch.int64,
                             device=self.device)
 
     def extract_rows(self, slot_ids: Sequence[int]) -> Any:
         """Current cache rows of ``slot_ids`` (the admission write's old)."""
-        idx = self._idx(slot_ids)
+        idx = self.index(slot_ids)
         return T.tree_map(lambda a: a.index_select(BATCH_AXIS, idx),
                           self.cache)
 
@@ -84,7 +85,7 @@ class SlotPool:
         positions, and the group's stats (each admitted slot's ledger is
         reset to its even share of the admission write). Returns the
         updated prefill accumulator."""
-        idx = self._idx(slot_ids)
+        idx = self.index(slot_ids)
         self.cache = T.tree_map(
             lambda a, r: a.index_copy(BATCH_AXIS, idx, r), self.cache,
             stored_rows)
