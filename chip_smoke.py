@@ -6,8 +6,9 @@ Run from the repository root on a machine with a CUDA device. Phases,
 each printed as one JSON line:
 
   1. device       — the card's name and power limit (nvidia-smi);
-  2. build        — compiles every kernel of src/repro_torch/csrc/ with
-                    nvcc, one process per source, all started together;
+  2. build        — compiles every kernel of src/repro_torch/csrc/ (four
+                    sources) with nvcc, one process per source, all
+                    started together;
   3. kernel       — the extent_write kernel against its plain PyTorch
                     twin on the card: f32/bf16/int8, ragged sizes, one
                     case above 2^24 lanes, the admission-row and
@@ -38,15 +39,46 @@ each printed as one JSON line:
                     scrubbing every 8 steps, counted the same way; also
                     the ms per decode step with retention on, the decay's
                     ms per step and the ms per scrub pass;
-  8. kernels      — per-kernel times against the HBM bound at the main
+  8. local_attention_kernel
+                  — the local_attention kernel against its plain PyTorch
+                    version on the card: recurrentgemma-2b's prefill shape
+                    (S 3072, 10 heads over 1 KV head of 256, window 2048,
+                    bf16), f32 and bf16 GQA/MHA cases with a softcap, a
+                    ragged S with a head width of 80, window >= S, and the
+                    reduced hybrid's shape. Largest |difference| within
+                    2e-5 (f32) or 3e-2 (bf16, also relative);
+  9. kv_quant_kernel
+                  — the kv_quant kernel against its twin at the CPU tests'
+                    shapes and levels LOW, MID, HIGH, EXACT: int8 payload,
+                    scales (bit for bit) and error counts exact;
+ 10. reduced_hybrid
+                  — reduced recurrentgemma-2b in float32 (TF32 off)
+                    serving a four-request hybrid trace (24-token prompts,
+                    longer than its 16-key window) through the kernels and
+                    through the plain versions: tokens identical, flips
+                    and energy within 1.5% per request, errors within
+                    three Poisson deviations (the tests' tolerances);
+ 11. hybrid       — recurrentgemma-2b at full published width (bf16,
+                    random weights from a seed, 26 layers): 8 requests of
+                    3072-token prompts (longer than the 2048-key window),
+                    32 new tokens each, 4 steps apart into 4 slots, every
+                    burst sync-free, then the int8 store (kv_quant) of the
+                    served cache's K and V, counting the launches of every
+                    kernel over that run only; the int8 store is then held
+                    bit-exactly against its twin at those leaves;
+ 12. kernels      — per-kernel times against the card's bound at the main
                     paths' shapes: the kernel's own device time
                     (torch.profiler) and the wrapper call's (CUDA
-                    events), each also held bit-exactly against the twin.
+                    events), each also held against the plain version.
                     extent_write: the admission write on the run's own
                     operands (real prefill rows over a cold slot and over
                     a freed slot's stale rows) and the decode column;
                     scrub: whole leaves of the retention run's own cache
-                    and decay masks, and a dense synthetic mask.
+                    and decay masks, and a dense synthetic mask;
+                    local_attention: the hybrid prefill's shape, beside
+                    one scaled_dot_product_attention call with a boolean
+                    band mask (timed only: the port never calls it);
+                    kv_quant: the served cache's K and V leaves.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
 the script exits non-zero and prints no result; it also refuses to run
@@ -54,6 +86,8 @@ without a CUDA device or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -64,7 +98,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor cores
 RTOL_ENERGY = 1e-5              # f32 energy: partials summed in another order
+#: local_attention against its plain version: the JAX package's own
+#: tolerances for its kernel (atol in f32; atol and rtol in bf16)
+ATOL_ATT = {"float32": 2e-5, "bfloat16": 3e-2}
+#: every kernel of the port: name -> (wrapper module, wrapper instance)
+KERNELS = {
+    "extent_write": ("repro_torch.kernels.extent_write.kernel",
+                     "extent_write_cuda"),
+    "scrub": ("repro_torch.kernels.scrub.kernel", "scrub_cuda"),
+    "local_attention": ("repro_torch.kernels.local_attention.kernel",
+                        "local_attention_cuda"),
+    "kv_quant": ("repro_torch.kernels.kv_quant.kernel", "kv_quant_cuda"),
+}
 
 
 def emit(obj) -> None:
@@ -94,6 +141,33 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_wrapper(name: str):
+    import importlib
+    mod, attr = KERNELS[name]
+    return getattr(importlib.import_module(mod), attr)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        kernel_wrapper(name).launches = 0
+
+
+def read_launches() -> dict:
+    return {name: kernel_wrapper(name).launches for name in KERNELS}
+
+
+@contextlib.contextmanager
+def uncounted(name: str):
+    """Launches made inside (a kernel held against its plain version, a
+    timing loop) do not count as the main path's."""
+    w = kernel_wrapper(name)
+    n0 = w.launches
+    try:
+        yield w
+    finally:
+        w.launches = n0
+
+
 def random_pair(shape, dtype, seed: int, device):
     """(old, new) of ``shape``: random words, with about a quarter of the
     elements left unchanged so the CMP skip path runs too."""
@@ -116,7 +190,7 @@ def phase_build():
     """Build every kernel from source, one nvcc per file in parallel."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build as B
-    names = ("extent_write", "scrub")
+    names = tuple(KERNELS)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
         built = list(ex.map(lambda n: B.build(n, force=True), names))
@@ -147,12 +221,10 @@ def check_scrub(s_u, m_u, seed, vec):
     re-written bits)."""
     import torch
     from repro_torch.kernels.extent_write.ref import as_u32
-    from repro_torch.kernels.scrub import kernel as SK
     from repro_torch.kernels.scrub import ref as SR
-    n0 = SK.scrub_cuda.launches
-    a_s, a_r, a_st = SK.scrub_cuda(s_u, m_u, seed, *vec)
+    with uncounted("scrub") as w:
+        a_s, a_r, a_st = w(s_u, m_u, seed, *vec)
     b_s, b_r, b_st = SR.scrub_ref(s_u, m_u, seed, *vec)
-    SK.scrub_cuda.launches = n0
     torch.cuda.synchronize()
     diff = max(int((as_u32(a_s) - as_u32(b_s)).abs().max()),
                int((as_u32(a_r) - as_u32(b_r)).abs().max()),
@@ -170,7 +242,6 @@ def phase_scrub_kernel(device):
     import torch
     from repro_torch.core.priority import Priority
     from repro_torch.kernels.extent_write import ops
-    from repro_torch.kernels.scrub import kernel as SK
     from repro_torch.memory import leaf_vectors
     all32, all16, all8 = range(32), range(16), range(8)
     cases = [
@@ -203,9 +274,8 @@ def phase_scrub_kernel(device):
             seed = 0x2545F491 ^ (i * 7919 + int(level))
             diff, rel, rewrites = check_scrub(s_u, m_u, seed, vec)
             if name == "f32_zero_mask":
-                n0 = SK.scrub_cuda.launches
-                sc, res, st = SK.scrub_cuda(s_u, m_u, seed, *vec)
-                SK.scrub_cuda.launches = n0
+                with uncounted("scrub") as w:
+                    sc, res, st = w(s_u, m_u, seed, *vec)
                 if not (torch.equal(sc, s_u) and not res.any()
                         and float(st["energy_pj"]) == 0.0 and rewrites == 0
                         and int(st["errors"]) == 0):
@@ -373,42 +443,33 @@ def phase_reduced(device):
 #: the main path's traffic: 8 requests of 256-token prompts, 32 new
 #: tokens each, arriving 4 steps apart into a pool of 4 slots
 PROMPT_LEN, NEW_TOKENS, CAPACITY, N_REQ = 256, 32, 4, 8
+#: the hybrid path's prompts: longer than recurrentgemma-2b's window
+PROMPT_LEN_HYBRID = 3072
 
 
-def serve_full(eng, scrub_policy=None):
-    """Drive the main path once at full width: the 8 requests through the
+def serve_full(eng, prompt_len, scrub_policy=None):
+    """Drive a path once at full width: the 8 requests through the
     continuous scheduler, every burst under
-    ``set_sync_debug_mode("error")``. The kernels' launch counts are set
-    to 0 just before and read just after. Returns (report, scheduler,
-    wall seconds, {kernel: launches})."""
+    ``set_sync_debug_mode("error")``; checks the tokens and the ledger.
+    The caller sets the launch counts to 0 just before and reads them
+    just after. Returns (report, scheduler, wall seconds)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.extent_write import kernel as K
-    from repro_torch.kernels.scrub import kernel as SK
     from repro_torch.serve import ContinuousScheduler, Request
     cfg = eng.cfg
     rs = np.random.default_rng(2)
     reqs = [Request(rid=i, prompt={"tokens": torch.from_numpy(
-        rs.integers(0, cfg.vocab_size, (1, PROMPT_LEN))).to(eng.device)},
+        rs.integers(0, cfg.vocab_size, (1, prompt_len))).to(eng.device)},
         new_tokens=NEW_TOKENS, arrival=4 * i,
         app_id="chat" if i % 2 else "batch") for i in range(N_REQ)]
     sch = ContinuousScheduler(eng, capacity=CAPACITY,
                               scrub_policy=scrub_policy)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.extent_write_cuda.launches = SK.scrub_cuda.launches = 0
     t0 = time.perf_counter()
     rep = sch.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"extent_write": K.extent_write_cuda.launches,
-                "scrub": SK.scrub_cuda.launches}
-    groups = rep["pool"]["admission_groups"]
-    expected = 2 * (groups + rep["decode_steps"])
-    if launches["extent_write"] != expected or expected <= 0:
-        raise AssertionError(f"extent_write launches {launches} != "
-                             f"2 x (admission groups {groups} + decode "
-                             f"steps {rep['decode_steps']}) = {expected}")
     toks = [rep["requests"][i]["tokens"] for i in range(N_REQ)]
     if any(len(t) != NEW_TOKENS for t in toks) or not all(
             0 <= x < cfg.vocab_size for t in toks for x in t):
@@ -417,7 +478,18 @@ def serve_full(eng, scrub_policy=None):
     if not (math.isfinite(tot["energy_pj"]) and tot["energy_pj"] > 0
             and 0.0 < tot["ber_realized"] < 0.1):
         raise AssertionError(f"full-width serve: implausible ledger {tot}")
-    return rep, sch, wall, launches
+    return rep, sch, wall
+
+
+def check_write_launches(launches, rep) -> None:
+    """Two extent_write launches (one per K and V leaf) per admission
+    group and per decode step, and none elsewhere."""
+    groups = rep["pool"]["admission_groups"]
+    expected = 2 * (groups + rep["decode_steps"])
+    if launches["extent_write"] != expected or expected <= 0:
+        raise AssertionError(f"extent_write launches {launches} != "
+                             f"2 x (admission groups {groups} + decode "
+                             f"steps {rep['decode_steps']}) = {expected}")
 
 
 def phase_full(device):
@@ -438,9 +510,13 @@ def phase_full(device):
     # the step timing doubles as the warm-up (cuBLAS handles, first
     # launches); the main path below then runs exactly once, counted
     step_ms = decode_step_ms(eng, PROMPT_LEN, CAPACITY)
-    rep, sch, wall, launches = serve_full(eng)
-    if launches["scrub"]:
-        raise AssertionError("the retention-off path launched a scrub")
+    reset_launches()
+    rep, sch, wall = serve_full(eng, PROMPT_LEN)
+    launches = read_launches()
+    check_write_launches(launches, rep)
+    if any(launches[k] for k in ("scrub", "local_attention", "kv_quant")):
+        raise AssertionError(f"the dense retention-off path launched "
+                             f"another kernel: {launches}")
     tot = rep["total"]
     emit({"phase": "full", "arch": cfg.name, "params": eng.api.num_params(),
           "param_bytes": n_bytes, "init_s": init_s,
@@ -467,15 +543,17 @@ def phase_retention(device, eng_full):
     import torch
     from repro_torch import rng
     from repro_torch.core.priority import Priority
-    from repro_torch.kernels.scrub import kernel as SK
     from repro_torch.reliability import make_scrub_policy
     from repro_torch.serve import ServingEngine
     eng = ServingEngine(eng_full.cfg, dataclasses.replace(
         eng_full.scfg, retention_scale=1000.0, ambient_k=350.0),
         eng_full.params, device=device)
     step_ms = decode_step_ms(eng, PROMPT_LEN, CAPACITY)
-    rep, sch, wall, launches = serve_full(
-        eng, make_scrub_policy("periodic", interval=8))
+    reset_launches()
+    rep, sch, wall = serve_full(eng, PROMPT_LEN,
+                                make_scrub_policy("periodic", interval=8))
+    launches = read_launches()
+    check_write_launches(launches, rep)
     peak = torch.cuda.max_memory_allocated()
     lt = rep["lifetime"]
     if not (launches["scrub"] == 2 * lt["scrub_passes"] > 0
@@ -491,11 +569,10 @@ def phase_retention(device, eng_full):
     rvec = eng.retention_vectors_for(Priority.LOW)
     decay_ms = cuda_ms(lambda: eng.life_plan.advance(
         key, sch.pool.cache, sch.life, rvec), iters=10, warmup=2)
-    n0 = SK.scrub_cuda.launches
     vec = eng.vectors_for_floor(Priority.LOW)
-    scrub_ms = cuda_ms(lambda: eng.scrub(key, sch.pool.cache, sch.life,
-                                         vec), iters=10, warmup=2)
-    SK.scrub_cuda.launches = n0
+    with uncounted("scrub"):
+        scrub_ms = cuda_ms(lambda: eng.scrub(key, sch.pool.cache, sch.life,
+                                             vec), iters=10, warmup=2)
     emit({"phase": "retention", "arch": eng.cfg.name,
           "scrub_interval": 8, "clock_steps": rep["clock_steps"],
           "decode_steps": rep["decode_steps"], "bursts": rep["bursts"],
@@ -505,6 +582,278 @@ def phase_retention(device, eng_full):
           "peak_mem_bytes": peak, "bursts_sync_free": True,
           "launches": launches, **lt, "ok": True})
     return launches["scrub"], sch
+
+
+def att_inputs(B, S, H, Kh, h, dtype, seed, device, q_scale=1.0):
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=device)
+               for shape in ((B, S, H, h), (B, S, Kh, h), (B, S, Kh, h)))
+    return (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
+
+
+def phase_local_attention_kernel(device):
+    """The kernel against its plain version on the card. A query scale
+    of 8 makes the logits large enough for the softcap to act."""
+    import torch
+    from repro_torch.kernels.local_attention import ops as LO
+    from repro_torch.kernels.local_attention import ref as LR
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # name, B, S, H, Kh, h, window, dtype, softcap, q scale
+        ("hybrid_prefill", *hybrid_att_shape(), bf16, 0.0, 1.0),
+        ("f32_gqa_softcap", 2, 512, 8, 2, 64, 128, f32, 50.0, 8.0),
+        ("bf16_mha_softcap", 1, 512, 4, 4, 128, 100, bf16, 30.0, 8.0),
+        ("f32_ragged_h80", 1, 333, 4, 1, 80, 64, f32, 0.0, 1.0),
+        ("f32_window_ge_s", 1, 200, 2, 1, 32, 10_000, f32, 0.0, 1.0),
+        ("reduced_hybrid", 2, 24, 4, 1, 16, 16, f32, 0.0, 1.0),
+    ]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (name, B, S, H, Kh, h, window, dtype, cap, qs) in enumerate(
+            cases):
+        q, k, v = att_inputs(B, S, H, Kh, h, dtype, 400 + i, device, qs)
+        with uncounted("local_attention"):
+            out = LO.local_attention(q, k, v, window=window, softcap=cap)
+        ref = LR.local_attention_ref(q, k, v, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        dt = str(dtype)[6:]
+        tol = ATOL_ATT[dt]
+        diff = (out.float() - ref.float()).abs()
+        rtol = tol if dtype == bf16 else 0.0
+        ok = bool((diff <= tol + rtol * ref.float().abs()).all())
+        err = float(diff.max())
+        emit({"phase": "local_attention_kernel", "case": name,
+              "shape": {"B": B, "S": S, "H": H, "Kh": Kh, "h": h},
+              "window": window, "softcap": cap, "dtype": dt,
+              "max_abs_err": err, "atol": tol, "rtol": rtol, "ok": ok})
+        if not ok:
+            raise AssertionError(f"local_attention disagrees with its "
+                                 f"plain version: {name}, {err}")
+        worst[dt] = max(worst[dt], err)
+    return worst
+
+
+def check_kv_quant(flat, seed, level):
+    """kv_quant kernel against its twin on one flat tensor: payload,
+    scales (bit for bit) and error counts equal. Returns the errors."""
+    import torch
+    from repro_torch.kernels.kv_quant import kernel as QK
+    from repro_torch.kernels.kv_quant import ops as QO
+    from repro_torch.kernels.kv_quant import ref as QR
+    thr = QO.threshold_tensor(level, flat.device)
+    with uncounted("kv_quant") as w:
+        q_k, s_k, e_k = w(flat, seed, thr)
+    q_r, s_r, e_r = QR.kv_quant_ref(QK.pad_rows(flat), seed, thr)
+    torch.cuda.synchronize()
+    if not (torch.equal(q_k, q_r.reshape(-1)[:flat.numel()])
+            and torch.equal(s_k.view(torch.int32), s_r.view(torch.int32))
+            and torch.equal(e_k, e_r)):
+        raise AssertionError(f"kv_quant disagrees with its twin at "
+                             f"{flat.numel()} elements, level {level}")
+    return int(e_r.sum())
+
+
+def phase_kv_quant_kernel(device):
+    """The kernel against its twin at the CPU tests' shapes."""
+    import torch
+    from repro_torch.core.priority import Priority
+    cases = [("bench", (64, 128), torch.bfloat16),
+             ("ragged", (3, 1000, 7), torch.float32),
+             ("hybrid_att_reduced", (1, 2, 16, 1, 16), torch.float32)]
+    for i, (name, shape, dtype) in enumerate(cases):
+        g = torch.Generator(device=device)
+        g.manual_seed(500 + i)
+        x = (torch.randn(shape, generator=g, device=device) * 2).to(dtype)
+        for level in (Priority.LOW, Priority.MID, Priority.HIGH,
+                      Priority.EXACT):
+            errors = check_kv_quant(x.reshape(-1), 0x5EED + i, level)
+            emit({"phase": "kv_quant_kernel", "case": name,
+                  "shape": list(shape), "dtype": str(dtype)[6:],
+                  "level": level.name, "errors": errors,
+                  "payload_scales_errors_equal": True, "ok": True})
+
+
+def hybrid_trace():
+    """Four 24-token requests (longer than the reduced window of 16) over
+    capacity 2, the recipe of tests/test_torch_rglru.py."""
+    import numpy as np
+    from repro_torch.workload import Trace, TraceEvent
+    rs = np.random.default_rng(13)
+    events = [TraceEvent(rid=i, arrival=a, tokens=rs.integers(0, 256, 24),
+                         new_tokens=n, quality=q, app_id=app, session=i)
+              for i, (a, n, q, app) in enumerate([
+                  (0, 5, "low", "batch"), (1, 4, "high", "chat"),
+                  (3, 6, "low", "batch"), (4, 3, "high", "chat")])]
+    return Trace(events=events, vocab_size=256, family="hybrid")
+
+
+@contextlib.contextmanager
+def plain_local_attention():
+    """Inside, the model's prefill attention runs the kernel's plain
+    version, asked for by name (on the card the entry point launches the
+    kernel)."""
+    from repro_torch.kernels.local_attention import ops as LO
+    from repro_torch.kernels.local_attention import ref as LR
+    saved = LO.local_attention
+    LO.local_attention = LR.local_attention_ref
+    try:
+        yield
+    finally:
+        LO.local_attention = saved
+
+
+def serve_hybrid_trace(cfg, params, backend, device):
+    from repro_torch.serve import (ContinuousScheduler, ServeConfig,
+                                   ServingEngine)
+    from repro_torch.workload import TraceSource
+    trace = hybrid_trace()
+    eng = ServingEngine(cfg, ServeConfig(
+        max_seq=trace.max_seq(), max_new_tokens=trace.max_new_tokens(),
+        backend=backend), params, device=device)
+    return ContinuousScheduler(eng, capacity=2).run(
+        TraceSource(trace, cfg, device))
+
+
+def phase_reduced_hybrid(device):
+    """Reduced recurrentgemma-2b through the kernels and through the plain
+    versions. The attention kernel sums in its own order, so later
+    layers' K/V may differ in the last bit: flips and energy are held at
+    1.5% per request and errors at three Poisson deviations (the CPU
+    tests' tolerances for float32 last-bit differences)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.rglru import layer_counts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("recurrentgemma-2b").reduced()
+    params = get_model(cfg).init(0, device)
+    reset_launches()
+    rep_k = serve_hybrid_trace(cfg, params, "cuda", device)
+    launches = read_launches()
+    reset_launches()
+    with plain_local_attention():
+        rep_r = serve_hybrid_trace(cfg, params, "lanes_ref", device)
+    if any(read_launches().values()):
+        raise AssertionError("the plain run launched a kernel")
+    check_write_launches(launches, rep_k)
+    n_att = layer_counts(cfg)[1]
+    if launches["local_attention"] != (n_att * rep_k["pool"]
+                                       ["admission_groups"]):
+        raise AssertionError(f"reduced hybrid: launches {launches}")
+    worst = 0.0
+    for rid, b in rep_r["requests"].items():
+        a = rep_k["requests"][rid]
+        if a["tokens"] != b["tokens"]:
+            raise AssertionError(f"reduced hybrid: req {rid} tokens")
+        for f in ("flips", "energy_pj"):
+            rel = abs(a[f] - b[f]) / max(abs(b[f]), 1e-30)
+            worst = max(worst, rel)
+            if rel > 1.5e-2:
+                raise AssertionError(f"reduced hybrid: req {rid} {f}")
+        if abs(a["errors"] - b["errors"]) > 3 * b["errors"] ** 0.5 + 1:
+            raise AssertionError(f"reduced hybrid: req {rid} errors")
+    emit({"phase": "reduced_hybrid", "tf32": False,
+          "requests": len(rep_k["requests"]),
+          "clock_steps": rep_k["clock_steps"], "bursts": rep_k["bursts"],
+          "launches": launches, "tokens_identical": True,
+          "flips": [rep_k["total"]["bits_written"],
+                    rep_r["total"]["bits_written"]],
+          "errors": [rep_k["total"]["bit_errors"],
+                     rep_r["total"]["bit_errors"]],
+          "energy_pj": [rep_k["total"]["energy_pj"],
+                        rep_r["total"]["energy_pj"]],
+          "max_rel_diff_per_request": worst, "ok": True})
+
+
+def kv_rel_err(q, s, x) -> float:
+    """Mean |dequantised - x| over mean |x| (the reference benchmark's
+    int8 fidelity figure)."""
+    import torch
+    from repro_torch.kernels.kv_quant import kv_dequant
+    xf = x.float()
+    return float((kv_dequant(q, s, torch.float32) - xf).abs().mean()
+                 / xf.abs().mean())
+
+
+def phase_hybrid(device):
+    """recurrentgemma-2b at full published width: the 8 requests of
+    3072-token prompts, then the int8 store of the served K and V."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.configs import get_config
+    from repro_torch.core.priority import Priority
+    from repro_torch.kernels.kv_quant import kv_quant_store
+    from repro_torch.models import get_model
+    from repro_torch.models.rglru import layer_counts
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = get_config("recurrentgemma-2b")
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(0, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ServingEngine(cfg, ServeConfig(
+        max_seq=PROMPT_LEN_HYBRID + NEW_TOKENS, max_new_tokens=NEW_TOKENS,
+        backend="cuda"), params, device=device)
+    # warm-up and the two step times, none of it counted
+    step_ms = decode_step_ms(eng, PROMPT_LEN_HYBRID, CAPACITY)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN_HYBRID),
+                           device=device)
+    with uncounted("local_attention"):
+        eng.api.prefill(params, {"tokens": prompt}, eng.scfg.max_seq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.api.prefill(params, {"tokens": prompt}, eng.scfg.max_seq)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    reset_launches()
+    rep, sch, wall = serve_full(eng, PROMPT_LEN_HYBRID)
+    peak = torch.cuda.max_memory_allocated()
+    served = sch.pool.cache["att"]
+    stores = {name: kv_quant_store(rng.PRNGKey(8 + i), served[name],
+                                   level=Priority.MID)
+              for i, name in enumerate(("k", "v"))}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_write_launches(launches, rep)
+    n_att = layer_counts(cfg)[1]
+    groups = rep["pool"]["admission_groups"]
+    if not (launches["local_attention"] == n_att * groups > 0
+            and launches["kv_quant"] == 2 and launches["scrub"] == 0):
+        raise AssertionError(f"hybrid: launches {launches}, {groups} "
+                             f"admission groups")
+    tot = rep["total"]
+    emit({"phase": "hybrid", "arch": cfg.name,
+          "params": eng.api.num_params(), "init_s": init_s,
+          "requests": N_REQ, "capacity": CAPACITY,
+          "prompt_len": PROMPT_LEN_HYBRID, "new_tokens": NEW_TOKENS,
+          "ring_capacity": served["k"].shape[2],
+          "clock_steps": rep["clock_steps"],
+          "decode_steps": rep["decode_steps"], "bursts": rep["bursts"],
+          "admission_groups": groups, "wall_s": wall,
+          "tokens_per_s": N_REQ * NEW_TOKENS / wall,
+          "decode_ms_per_step_b4": step_ms, "prefill_ms_b1": prefill_ms,
+          "peak_mem_bytes": peak, "kv_write_energy_pj": tot["energy_pj"],
+          "ber": tot["ber_realized"],
+          "write_skip_rate": tot["write_skip_rate"],
+          "bursts_sync_free": True, "launches": launches,
+          "int8_kv": {name: {"errors": int(st["errors"]),
+                             "bytes_saved": st["bytes_saved"],
+                             "rel_err_mid": kv_rel_err(q, s, served[name])}
+                      for name, (q, s, st) in stores.items()},
+          "ok": True})
+    # the int8 store held against its twin at the served leaves
+    for i, name in enumerate(("k", "v")):
+        seed = int(rng.bits(rng.PRNGKey(8 + i), (1,))[0])
+        errors = check_kv_quant(served[name].reshape(-1), seed,
+                                Priority.MID)
+        emit({"phase": "kv_quant_kernel", "case": f"served_{name}",
+              "shape": list(served[name].shape), "dtype": "bfloat16",
+              "level": "MID", "errors": errors,
+              "payload_scales_errors_equal": True,
+              "rel_err_mid": kv_rel_err(*stores[name][:2], served[name]),
+              "ok": True})
+    return launches, sch
 
 
 def decode_step_ms(eng, prompt_len, batch) -> float:
@@ -534,12 +883,10 @@ def check_against_twin(o_u, n_u, seed, vec):
     """Largest difference of stored words and counts between the kernel
     and its twin on the same lanes (launches here are not counted)."""
     import torch
-    from repro_torch.kernels.extent_write import kernel as K
     from repro_torch.kernels.extent_write import ref
-    n0 = K.extent_write_cuda.launches
-    s_k, st_k = K.extent_write_cuda(o_u, n_u, seed, *vec)
+    with uncounted("extent_write") as w:
+        s_k, st_k = w(o_u, n_u, seed, *vec)
     s_r, st_r = ref.extent_write_ref(o_u, n_u, seed, *vec)
-    K.extent_write_cuda.launches = n0
     torch.cuda.synchronize()
     diff = int((ref.as_u32(s_k) - ref.as_u32(s_r)).abs().max())
     for k in ("flips01", "flips10", "errors"):
@@ -573,33 +920,39 @@ def device_ms(calls, kernel_name: str, reps: int):
     return us / 1e3 / n if n and us > 0 else None
 
 
-def time_kernel(wrapper, twin, kernel_name, args, bytes_per_lane, flips):
-    """Per launch, over the argument tuples ``args``: the kernel's device
-    time (profiler), the wrapper call's time (CUDA events around a loop
-    of calls), the twin's, and the bound — the larger of the bytes moved
-    (``bytes_per_lane``, each input read and output written once) over
-    the HBM rate and one f32 energy add per flipped bit over the f32
-    rate. The wrapper's launch count is restored afterwards."""
+def time_calls(name, kernel_name, call, plain, reps, per=1):
+    """The kernel's device time per launch (torch.profiler's kernel rows
+    named ``kernel_name``), and per launch the wrapper call's and the
+    plain version's (CUDA events around loops of ``call()`` and
+    ``plain()``, each making ``per`` launches); launches not counted."""
+    with uncounted(name):
+        dev = device_ms(call, kernel_name, max(5, reps // 5))
+        call_ms = cuda_ms(call, reps) / per
+    return {"ms": dev if dev is not None else call_ms,
+            "ms_is": ("kernel device time (torch.profiler)"
+                      if dev is not None else
+                      "wrapper call (CUDA events): no profiler device time"),
+            "device_ms": dev, "wrapper_ms": call_ms,
+            "plain_ms": cuda_ms(plain, max(3, reps // 10)) / per}
+
+
+def time_kernel(name, twin, kernel_name, args, bytes_per_lane, flips):
+    """``time_calls`` over the lane argument tuples ``args``, with the
+    bound: the larger of the bytes moved (``bytes_per_lane``, each input
+    read and output written once) over the HBM rate and one f32 energy
+    add per flipped bit over the f32 rate."""
     lanes = sum(a[0].numel() for a in args)
-    n0 = wrapper.launches
     iters = 200 if lanes < 1 << 20 else 50
 
     def run(fn):
         return lambda: [fn(*a) for a in args]
 
-    dev = device_ms(run(wrapper), kernel_name, max(5, iters // 5))
-    call_ms = cuda_ms(run(wrapper), iters) / len(args)
-    plain = cuda_ms(run(twin), max(5, iters // 10)) / len(args)
-    wrapper.launches = n0
     t_bytes = bytes_per_lane * lanes / HBM_BYTES_PER_S * 1e3 / len(args)
     t_ops = flips / F32_FLOPS * 1e3 / len(args)
     return {"lanes_per_launch": lanes // len(args),
             "flips_per_launch": flips / len(args),
-            "ms": dev if dev is not None else call_ms,
-            "ms_is": ("kernel device time (torch.profiler)"
-                      if dev is not None else
-                      "wrapper call (CUDA events): no profiler device time"),
-            "device_ms": dev, "wrapper_ms": call_ms, "plain_ms": plain,
+            **time_calls(name, kernel_name, run(kernel_wrapper(name)),
+                         run(twin), iters, per=len(args)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -607,28 +960,26 @@ def time_kernel(wrapper, twin, kernel_name, args, bytes_per_lane, flips):
 def time_writes(name, writes):
     """extent_write over a list of (old lanes, new lanes, vectors), held
     against the twin, then timed (12 bytes per lane)."""
-    from repro_torch.kernels.extent_write import kernel as K
     from repro_torch.kernels.extent_write import ref
     worst, flips = 0, 0
     for o, n, vec in writes:
         d, f = check_against_twin(o, n, 1, vec)
         worst, flips = max(worst, d), flips + f
     return {"shape": name, "max_abs_err": worst, **time_kernel(
-        K.extent_write_cuda, ref.extent_write_ref, "extent_write_kernel",
+        "extent_write", ref.extent_write_ref, "extent_write_kernel",
         [(o, n, 1, *vec) for o, n, vec in writes], 12, flips)}
 
 
 def time_scrubs(name, scrubs):
     """scrub over a list of (stored lanes, mask lanes, vectors), held
     against the twin, then timed (16 bytes per lane)."""
-    from repro_torch.kernels.scrub import kernel as SK
     from repro_torch.kernels.scrub import ref as SR
     worst, rel, flips = 0, 0.0, 0
     for su, mu, vec in scrubs:
         d, r, f = check_scrub(su, mu, 1, vec)
         worst, rel, flips = max(worst, d), max(rel, r), flips + f
     return {"shape": name, "max_abs_err": worst, "energy_rel_err": rel,
-            **time_kernel(SK.scrub_cuda, SR.scrub_ref, "scrub_kernel",
+            **time_kernel("scrub", SR.scrub_ref, "scrub_kernel",
                           [(su, mu, 1, *vec) for su, mu, vec in scrubs],
                           16, flips)}
 
@@ -728,6 +1079,99 @@ def scrub_entry(launches, worst_abs, worst_rel, sch, device):
         "library_ms": None, "shape": run["shape"], "at": timings}
 
 
+def live_pairs(S, window) -> int:
+    """(query, key) pairs with 0 <= i - j < window in a causal band."""
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def hybrid_att_shape():
+    """(B, S, H, Kh, h, window) of one prefill of the hybrid path."""
+    from repro_torch.configs import get_config
+    cfg = get_config("recurrentgemma-2b")
+    return (1, PROMPT_LEN_HYBRID, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.local_window)
+
+
+def local_attention_entry(launches, worst, device):
+    """Times at the hybrid prefill's shape: B 1, S 3072, 10 query heads
+    over 1 KV head of 256, window 2048, bf16. The bound is the larger of
+    4 H h FLOP per live pair at the bf16 tensor-core rate and the bytes
+    of q, k, v and the output at the HBM rate. The library time is one
+    scaled_dot_product_attention call with a boolean band mask (GQA
+    broadcast), checked against the kernel to the bf16 tolerance."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.local_attention import ops as LO
+    from repro_torch.kernels.local_attention import ref as LR
+    B, S, H, Kh, h, W = hybrid_att_shape()
+    q, k, v = att_inputs(B, S, H, Kh, h, torch.bfloat16, 7, device)
+    t = time_calls("local_attention", "local_attention_kernel",
+                   lambda: LO.local_attention(q, k, v, window=W),
+                   lambda: LR.local_attention_ref(q, k, v, window=W), 20)
+    i = torch.arange(S, device=device)
+    d = i[:, None] - i[None, :]
+    band = (d >= 0) & (d < W)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                              enable_gqa=True)
+
+    with uncounted("local_attention"):
+        lib_err = float((sdpa().transpose(1, 2).float() - LO.local_attention(
+            q, k, v, window=W).float()).abs().max())
+    if lib_err > ATOL_ATT["bfloat16"]:
+        raise AssertionError(f"band-masked SDPA differs from the kernel: "
+                             f"{lib_err}")
+    library_ms = cuda_ms(sdpa, 20)
+    flops = 4 * H * h * live_pairs(S, W) * B
+    n_bytes = 2 * (2 * B * S * H * h + 2 * B * S * Kh * h)
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "name": "local_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/local_attention.cu",
+        "replaces": "src/repro/kernels/local_attention/kernel.py:82",
+        "launches": launches, "max_abs_err": max(worst.values()),
+        "max_abs_err_by_dtype": worst, **t,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops, "bytes": n_bytes, "library_ms": library_ms,
+        "library": "scaled_dot_product_attention, boolean band mask",
+        "library_max_abs_diff": lib_err,
+        "shape": f"q ({B}, {S}, {H}, {h}) k/v ({B}, {S}, {Kh}, {h}) "
+                 f"bfloat16, window {W}"}
+
+
+def kv_quant_entry(launches, sch):
+    """Times at the served cache's K leaf (8, 4, 2048, 1, 256) bf16: the
+    bound is its bytes (2 read and 1 written per element) at the HBM
+    rate; the plain version is the twin on the padded float32 rows."""
+    from repro_torch.core.priority import Priority
+    from repro_torch.kernels.kv_quant import kernel as QK
+    from repro_torch.kernels.kv_quant import ops as QO
+    from repro_torch.kernels.kv_quant import ref as QR
+    flat = sch.pool.cache["att"]["k"].reshape(-1)
+    thr = QO.threshold_tensor(Priority.MID, flat.device)
+    t = time_calls("kv_quant", "kv_quant_kernel",
+                   lambda: QK.kv_quant_cuda(flat, 1, thr),
+                   lambda: QR.kv_quant_ref(QK.pad_rows(flat), 1, thr), 50)
+    n_bytes = flat.numel() * (flat.element_size() + 1)
+    return {
+        "name": "kv_quant", "route": "cuda",
+        "source": "src/repro_torch/csrc/kv_quant.cu",
+        "replaces": "src/repro/kernels/kv_quant/kernel.py:74",
+        "launches": launches, "max_abs_err": 0, **t,
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bytes": n_bytes,
+        # no single PyTorch call quantises and stores through the
+        # erased-row write model
+        "library_ms": None,
+        "shape": f"{tuple(sch.pool.cache['att']['k'].shape)} bfloat16 = "
+                 f"{flat.numel()} elements, level MID"}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run from a checkout of the repository "
@@ -748,14 +1192,26 @@ def main() -> int:
     phase_build()
     worst_abs, worst_rel = phase_kernel(device)
     s_abs, s_rel = phase_scrub_kernel(device)
+    att_worst = phase_local_attention_kernel(device)
+    phase_kv_quant_kernel(device)
     phase_reduced(device)
+    phase_reduced_hybrid(device)
     launches, eng, sch = phase_full(device)
     s_launches, r_sch = phase_retention(device, eng)
+    # the dense path's entries are timed on its own state, which is then
+    # freed, so the hybrid phase's peak memory is its own
+    entries = [extent_write_entry(launches, worst_abs, worst_rel, eng, sch,
+                                  device),
+               scrub_entry(s_launches, s_abs, s_rel, r_sch, device)]
+    del eng, sch, r_sch
+    gc.collect()
+    torch.cuda.empty_cache()
+    h_launches, h_sch = phase_hybrid(device)
+    entries += [local_attention_entry(h_launches["local_attention"],
+                                      att_worst, device),
+                kv_quant_entry(h_launches["kv_quant"], h_sch)]
     print(nvidia_smi_line(), flush=True)
-    emit({"kernels": [
-        extent_write_entry(launches, worst_abs, worst_rel, eng, sch,
-                           device),
-        scrub_entry(s_launches, s_abs, s_rel, r_sch, device)]})
+    emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -33,19 +33,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "counter_hash.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPlanes = 32;
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
 
 __global__ void __launch_bounds__(kThreads)
 extent_write_kernel(const uint32_t* __restrict__ old_u,
@@ -84,13 +77,13 @@ extent_write_kernel(const uint32_t* __restrict__ old_u,
     if (diff) {
       // lane indices above 2^32 are refused by the wrapper: the hash
       // takes the index modulo 2^32 exactly as the uint32 reference does
-      const uint32_t base = (uint32_t)i * 2654435761u ^ seed;
+      const uint32_t base = counter_hash::hash_base((uint32_t)i, seed);
 #pragma unroll 8
       for (int b = 0; b < kPlanes; ++b) {
         const uint32_t bit = 1u << b;
         if (!(diff & bit)) continue;
         const bool to_ap = (nw & bit) != 0u;
-        const uint32_t u = fmix32(base ^ ((uint32_t)b * 0x9E3779B9u));
+        const uint32_t u = counter_hash::uniform_bits(base, b);
         const bool fail = u < (to_ap ? s_thr01[b] : s_thr10[b]);
         fail_mask |= fail ? bit : 0u;
         energy += to_ap ? s_e01[b] : s_e10[b];

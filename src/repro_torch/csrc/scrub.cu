@@ -37,19 +37,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "counter_hash.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPlanes = 32;
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
 
 __global__ void __launch_bounds__(kThreads)
 scrub_kernel(const uint32_t* __restrict__ stored,
@@ -92,14 +85,14 @@ scrub_kernel(const uint32_t* __restrict__ stored,
     const uint32_t corrected = s ^ m;
     // lane indices above 2^32 are refused by the wrapper: the hash takes
     // the index modulo 2^32 exactly as the uint32 reference does
-    const uint32_t base = (uint32_t)i * 2654435761u ^ seed;
+    const uint32_t base = counter_hash::hash_base((uint32_t)i, seed);
     uint32_t fail_mask = 0u;
     while (m) {
       const int b = __ffs(m) - 1;
       m &= m - 1u;
       const uint32_t bit = 1u << b;
       const bool to_ap = (corrected & bit) != 0u;
-      const uint32_t u = fmix32(base ^ ((uint32_t)b * 0x9E3779B9u));
+      const uint32_t u = counter_hash::uniform_bits(base, b);
       const bool fail = u < (to_ap ? s_thr01[b] : s_thr10[b]);
       fail_mask |= fail ? bit : 0u;
       energy += to_ap ? s_e01[b] : s_e10[b];

@@ -4,8 +4,9 @@ Every kernel of the port is a ``csrc/<name>.cu`` file with a plain C
 interface, compiled with ``nvcc`` for ``sm_90a`` into
 ``build/torch_kernels/lib<name>.so`` (``build/`` is listed in
 .gitignore) and bound with ``ctypes`` by its wrapper. ``build(name)``
-compiles when the library is missing or older than its source, so the
-first call of a wrapper on the card builds it and later calls reuse it.
+compiles when the library is missing or older than its source or a
+shared header of ``csrc/`` (``*.cuh``), so the first call of a wrapper
+on the card builds it and later calls reuse it.
 """
 from __future__ import annotations
 
@@ -44,11 +45,11 @@ def _nvcc() -> str:
 
 def build(name: str, force: bool = False) -> Tuple[Path, float]:
     """Compile ``csrc/<name>.cu`` if its library is missing or older than
-    the source. Returns (library path, seconds spent compiling)."""
+    the source or a header. Returns (library path, seconds spent compiling)."""
     src = source(name)
     lib = BUILD_DIR / f"lib{name}.so"
-    if (not force and lib.exists()
-            and lib.stat().st_mtime >= src.stat().st_mtime):
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    if not force and lib.exists() and lib.stat().st_mtime >= newest:
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()

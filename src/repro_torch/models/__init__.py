@@ -1,5 +1,6 @@
-"""Model API of the port. The dense family is ported; every other family
-raises ``NotImplementedError`` (later slices)."""
+"""Model API of the port. The dense and hybrid (recurrentgemma) families
+are ported for serving; every other family raises ``NotImplementedError``
+(later slices)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,13 +9,16 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rglru, transformer
 from repro_torch.models.layers import init_from_descs, param_count
 
 _KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+#: family -> the module serving it
+_FAMILIES = {"dense": transformer, "hybrid": rglru}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -26,9 +30,14 @@ class ModelApi:
     cfg: ModelConfig
 
     def __post_init__(self):
-        if self.cfg.family != "dense":
+        if self.cfg.family not in _FAMILIES:
             raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet (dense only)")
+                f"family {self.cfg.family!r} is not ported yet (ported: "
+                f"{', '.join(_FAMILIES)})")
+
+    @property
+    def _module(self):
+        return _FAMILIES[self.cfg.family]
 
     @property
     def param_dtype(self) -> torch.dtype:
@@ -39,7 +48,7 @@ class ModelApi:
         return torch_dtype(self.cfg.compute_dtype)
 
     def descs(self):
-        return transformer.descs(self.cfg)
+        return self._module.descs(self.cfg)
 
     def init(self, seed: int, device) -> Dict[str, Any]:
         return init_from_descs(seed, self.descs(), self.param_dtype,
@@ -49,19 +58,24 @@ class ModelApi:
         return param_count(self.descs())
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
-        return transformer.prefill(params, batch["tokens"], self.cfg,
-                                   max_seq)
+        return self._module.prefill(params, batch["tokens"], self.cfg,
+                                    max_seq)
 
     def init_cache(self, batch_size: int, max_seq: int, device):
-        return transformer.init_cache(self.cfg, batch_size, max_seq,
-                                      self.compute_dtype, device)
+        return self._module.init_cache(self.cfg, batch_size, max_seq,
+                                       self.compute_dtype, device)
 
     def decode_step(self, params, token, cache, pos, max_seq: int):
-        return transformer.decode_step(params, token, cache, pos, self.cfg,
-                                       max_seq)
+        return self._module.decode_step(params, token, cache, pos, self.cfg,
+                                        max_seq)
 
     def cache_axes(self):
-        return {name: {"k": _KV_AXES, "v": _KV_AXES}
+        kv = {"k": _KV_AXES, "v": _KV_AXES}
+        if self.cfg.family == "hybrid":
+            return {"rec_state": ("layers", "batch", "mlp"),
+                    "rec_conv": ("layers", "batch", None, "mlp"),
+                    "att": kv}
+        return {name: dict(kv)
                 for name in transformer.cache_spec(self.cfg, 8)}
 
     def prompt_len(self, batch: Dict[str, torch.Tensor]) -> int:

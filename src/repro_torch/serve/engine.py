@@ -1,12 +1,14 @@
 """Serving engine: batched prefill + decode with EXTENT-approximate KV writes.
 
-The counterpart of ``repro.serve.engine`` for the dense, greedy,
-extent-only path. The engine diffs cache trees: after a decode step the
-approximate write of (old cache, new cache) is exactly the paper's write
-semantics — untouched slots are bit-identical (zero energy under CMP) and
-the freshly written ring column pays level energy and carries level WER.
-One ``WritePlan`` is resolved at construction; the backend is a registry
-name (``cuda`` on a CUDA device, ``lanes_ref`` on the CPU by default).
+The counterpart of ``repro.serve.engine`` for the greedy, extent-only
+path of the ported families (dense; hybrid, whose float32 recurrent
+states are EXACT leaves stored as they are). The engine diffs cache
+trees: after a decode step the approximate write of (old cache, new
+cache) is exactly the paper's write semantics — untouched slots are
+bit-identical (zero energy under CMP) and the freshly written ring
+column pays level energy and carries level WER. One ``WritePlan`` is
+resolved at construction; the backend is a registry name (``cuda`` on a
+CUDA device, ``lanes_ref`` on the CPU by default).
 
 A decode *burst* of ``n`` steps is a Python loop of fused steps
 (decode -> column write -> retention decay -> greedy sample -> stats)
@@ -81,7 +83,8 @@ def mask_rows(new_tree: Any, old_tree: Any, active: torch.Tensor) -> Any:
 
 
 class ServingEngine:
-    """Batched autoregressive serving (dense family, greedy sampling)."""
+    """Batched autoregressive serving (greedy sampling) of any ported
+    family: the engine only diffs cache trees."""
 
     def __init__(self, cfg: ModelConfig, serve_cfg: ServeConfig,
                  params: Optional[Any] = None, *, device=None,

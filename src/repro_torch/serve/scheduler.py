@@ -1,13 +1,14 @@
 """Continuous-batching request scheduler over the slot-pool KV cache.
 
-The counterpart of ``repro.serve.scheduler`` for the dense, greedy,
-extent-only path: admission groups (one fused prefill per prompt shape),
-decode bursts up to the next scheduler event (earliest completion or next
-arrival), per-request quality resolved through the ``ExtentTable`` with
-the pool-wide floor ``max(policy, strictest active hint)``, and the serve
-report. Scheduling is host-predictable, so decisions never read the
-device; token fragments stay lazy device references until completion,
-and the device is read once per event (completions) and once at the end.
+The counterpart of ``repro.serve.scheduler`` for the greedy, extent-only
+path of the ported families (dense, hybrid): admission groups (one fused
+prefill per prompt shape), decode bursts up to the next scheduler event
+(earliest completion or next arrival), per-request quality resolved
+through the ``ExtentTable`` with the pool-wide floor ``max(policy,
+strictest active hint)``, and the serve report. Scheduling is
+host-predictable, so decisions never read the device; token fragments
+stay lazy device references until completion, and the device is read
+once per event (completions) and once at the end.
 
 With retention on (``ServeConfig.retention_scale > 0``) the scheduler
 owns the run's ``LifetimeState``: admissions clear the admitted rows'

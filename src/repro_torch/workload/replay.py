@@ -1,10 +1,11 @@
 """Trace replay: the trace-iterator arrival source for the scheduler.
 
 The counterpart of ``repro.workload.replay.TraceSource`` for token-only
-(dense) traces: it answers "when does the next request arrive" from host
-metadata and materializes a request's prompt tensor only when the
-scheduler pops it. Admission order is (arrival, rid), as in the
-reference, which is what keeps replay bit-comparable across packages.
+traces (the dense and hybrid families): it answers "when does the next
+request arrive" from host metadata and materializes a request's prompt
+tensor only when the scheduler pops it. Admission order is (arrival,
+rid), as in the reference, which is what keeps replay bit-comparable
+across packages.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from repro_torch.workload.trace import Trace, TraceEvent, validate_trace
 
 def _materialize(ev: TraceEvent, cfg, device,
                  quality_override: Optional[str] = None) -> Request:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r}: only token prompts are ported")
     q = quality_override if quality_override is not None else ev.quality
