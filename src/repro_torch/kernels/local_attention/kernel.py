@@ -10,7 +10,9 @@ raises if it is not 0.
 
 Bound by operations at the hybrid prefill's shape: 4 x H x h FLOP per
 live (query, key) pair, about 4.3e10 FLOP for recurrentgemma-2b's
-3072-token prompt, against about 35 MB of traffic.
+3072-token prompt, against about 35 MB of traffic. bfloat16 inputs run
+on the tensor cores (``mma.sync``, float32 accumulation, probabilities
+kept to 16 significant bits for p.v); float32 inputs on the CUDA cores.
 
 ``local_attention_cuda`` (the ``LocalAttentionCuda`` instance) is what
 ``ops.local_attention`` calls. For CPU tensors it runs the plain version

@@ -4,8 +4,8 @@ attention over the model's (B,S,H,h) / (B,S,Kh,h) layout.
 The counterpart of ``repro.kernels.local_attention.ops.local_attention``.
 The reference wrapper flattens heads into the batch and picks tile sizes
 that divide S; the CUDA kernel takes the model's layout as it is and any
-S (a ragged last tile is masked), so this wrapper only checks shapes and
-clamps the window to S. The kernel or its plain version follows the
+S (a ragged last tile is masked) and any window (one of S or more is
+fully causal), so this wrapper only checks shapes. The kernel or its plain version follows the
 tensors' device (``kernel.local_attention_cuda``)."""
 from __future__ import annotations
 
@@ -28,5 +28,5 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{k.shape[2]} KV heads")
     if window <= 0:
         raise ValueError(f"local_attention: window {window}")
-    return K.local_attention_cuda(q, k, v, window=min(window, S),
+    return K.local_attention_cuda(q, k, v, window=window,
                                   softcap=softcap)

@@ -12,8 +12,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru, transformer
 from repro_torch.models.layers import init_from_descs, param_count
 
-_KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
-
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -70,13 +68,7 @@ class ModelApi:
                                         max_seq)
 
     def cache_axes(self):
-        kv = {"k": _KV_AXES, "v": _KV_AXES}
-        if self.cfg.family == "hybrid":
-            return {"rec_state": ("layers", "batch", "mlp"),
-                    "rec_conv": ("layers", "batch", None, "mlp"),
-                    "att": kv}
-        return {name: dict(kv)
-                for name in transformer.cache_spec(self.cfg, 8)}
+        return self._module.cache_axes(self.cfg)
 
     def prompt_len(self, batch: Dict[str, torch.Tensor]) -> int:
         return batch["tokens"].shape[1]

@@ -15,6 +15,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDesc, rope, softcap
 
 NEG_INF = -2.0e38
+#: axes of a K or V cache leaf (n_layers, B, C, Kh, h)
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
 
 
 def attn_descs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDesc]:

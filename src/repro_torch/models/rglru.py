@@ -93,6 +93,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
     }
 
 
+def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Axes of each leaf of ``init_cache``'s tree."""
+    kv = attn.KV_AXES
+    return {"rec_state": ("layers", "batch", "mlp"),
+            "rec_conv": ("layers", "batch", None, "mlp"),
+            "att": {"k": kv, "v": kv}}
+
+
 def _at(stack: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in stack.items()}
 

@@ -57,6 +57,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
     return out
 
 
+def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Axes of each leaf of ``init_cache``'s tree."""
+    kv = attn.KV_AXES
+    return {name: {"k": kv, "v": kv} for name in cache_spec(cfg, 8)}
+
+
 def _layer_params(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
     return {k: (_layer_params(v, l) if isinstance(v, dict) else v[l])
             for k, v in layers.items()}

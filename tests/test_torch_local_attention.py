@@ -109,3 +109,24 @@ def test_entry_point_checks_shapes():
         local_attention(q, kv, kv, window=4)
     with pytest.raises(ValueError, match="window"):
         local_attention(kv, kv, kv, window=0)
+
+
+@pytest.mark.parametrize("case", [(1, 128, 2, 1, 256, 48, 0.0, 1.0),
+                                  (2, 256, 8, 2, 64, 100, 50.0, 8.0)],
+                         ids=["mqa_h256", "gqa_softcap"])
+def test_bf16_float32_plain_within_one_ulp_of_reference_kernel(case):
+    """The bf16 criterion ``chip_smoke.py`` holds the CUDA kernel to: the
+    plain version run in float32 on the bf16 inputs and rounded to bf16
+    is within 1e-4 + 2^-7 |value| (one bf16 ulp) of the reference's
+    Pallas kernel, which also keeps the probabilities in float32."""
+    B, S, H, Kh, h, window, cap, q_scale = case
+    q, k, v = _qkv(B, S, H, Kh, h, seed=15 + h)
+    q = q * q_scale
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    out = local_attention_ref(*(t.float() for t in bf), window=window,
+                              softcap=cap).to(torch.bfloat16).float().numpy()
+    ref = np.asarray(jlocal(*(jnp.asarray(a).astype(jnp.bfloat16)
+                              for a in (q, k, v)),
+                            window=window, softcap=cap, bq=64, bk=32),
+                     np.float32)
+    assert np.all(np.abs(out - ref) <= 1e-4 + 2.0 ** -7 * np.abs(ref))
