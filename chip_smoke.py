@@ -8,12 +8,17 @@ each printed as one JSON line:
   1. device       — the card's name and power limit (nvidia-smi);
   2. build        — compiles every kernel of src/repro_torch/csrc/ (four
                     sources) with nvcc, one process per source, all
-                    started together;
+                    started together, and a fifth reads ptxas's registers
+                    and spills of local_attention's wgmma kernels
+                    (-Xptxas -v): the served instance (h 256) must not
+                    spill;
   3. kernel       — the extent_write kernel against its plain PyTorch
                     twin on the card: f32/bf16/int8, ragged sizes, one
                     case above 2^24 lanes, the admission-row and
-                    decode-column shapes of the main path. Stored words
-                    and counts bit-exact, energy rtol 1e-5;
+                    decode-column shapes of the main path, and the
+                    admission row with every plane of every lane flipping
+                    (the dense worst case). Stored words and counts
+                    bit-exact, energy rtol 1e-5;
   4. scrub_kernel — the scrub kernel against its twin the same way, at
                     levels LOW, MID and EXACT: dense and sparse masks,
                     an all-zero mask, a case above 2^24 lanes, a whole
@@ -41,11 +46,15 @@ each printed as one JSON line:
                     ms per step and the ms per scrub pass;
   8. local_attention_kernel
                   — the local_attention kernel against its plain PyTorch
-                    version on the card: recurrentgemma-2b's prefill shape
-                    (S 3072, 10 heads over 1 KV head of 256, window 2048,
-                    bf16), f32 and bf16 GQA/MHA cases with a softcap, a
-                    ragged S with a head width of 80, window >= S, and the
-                    reduced hybrid's shape, in f32 and in bf16. The plain
+                    version on the card, every case of att_cases():
+                    recurrentgemma-2b's prefill shape (S 3072, 10 heads
+                    over 1 KV head of 256, window 2048, bf16), f32 and bf16
+                    GQA/MHA cases with a softcap, the wgmma route at h 64,
+                    128 and 256 with B 2, S 333 and 3000, windows 100 and
+                    2048, GQA 2:1 and 10:1 and the softcap on, a ragged S
+                    with a head width of 80, window >= S, and the reduced
+                    hybrid's shape, in f32 and in bf16; the route the C
+                    dispatch takes is held against kernel.route. The plain
                     version runs in f32 on the same inputs; for bf16 its
                     result is rounded to bf16. |difference| within 2e-5
                     (f32), or within 1e-4 + 2^-7 |plain| (bf16: one unit in
@@ -83,7 +92,8 @@ each printed as one JSON line:
                     one scaled_dot_product_attention call with a boolean
                     band mask (timed only: the port never calls it; held
                     against the f32 plain version within bf16 rounding of
-                    its probabilities and its output);
+                    its probabilities and its output) and beside the
+                    mma.sync kernel, device times in turns;
                     kv_quant: the served cache's K and V leaves.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
@@ -196,17 +206,30 @@ def random_pair(shape, dtype, seed: int, device):
 
 
 def phase_build():
-    """Build every kernel from source, one nvcc per file in parallel."""
+    """Build every kernel from source, one nvcc per file in parallel; a
+    sixth nvcc reads ptxas's registers and spills of local_attention's
+    wgmma kernels (``-Xptxas -v``). Returns those of the served instance
+    (h 256), which must not spill."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build as B
     names = tuple(KERNELS)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as ex:
+    with ThreadPoolExecutor(len(names) + 1) as ex:
+        usage = ex.submit(B.resource_usage, "local_attention")
         built = list(ex.map(lambda n: B.build(n, force=True), names))
+        usage, notes = usage.result()
+    wgmma = {h: next(u for k, u in usage.items()
+                     if f"local_attention_kernel_wgmmaILi{h}E" in k)
+             for h in (64, 128, 256)}
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "kernels": [{"source": str(B.source(n).relative_to(ROOT)),
                        "seconds": sec}
-                      for n, (_, sec) in zip(names, built)]})
+                      for n, (_, sec) in zip(names, built)],
+          "local_attention_wgmma_ptxas": wgmma, "ptxas_notes": notes})
+    if wgmma[256]["spill_stores"] or wgmma[256]["spill_loads"]:
+        raise AssertionError(f"the served local_attention instance spills: "
+                             f"{wgmma[256]}")
+    return wgmma[256]
 
 
 def random_mask(shape, dtype, density, planes, seed, device):
@@ -313,6 +336,9 @@ def phase_kernel(device):
          Priority.LOW),
         ("bf16_admission_row", (36, 1, 288, 2, 128), torch.bfloat16,
          Priority.MID),
+        # all 32 planes flip in every lane: the dense (branch-free) path
+        ("bf16_admission_all_flip", (36, 1, 288, 2, 128), torch.bfloat16,
+         Priority.MID),
     ]
     worst_abs = 0
     worst_rel = 0.0
@@ -322,6 +348,8 @@ def phase_kernel(device):
         vec = (lv.thr01, lv.thr10, lv.le01, lv.le10)
         seed = 0x9E3779B9 ^ (i * 7919)
         o_u, n_u = ops.to_lanes(old), ops.to_lanes(new)
+        if name.endswith("all_flip"):
+            n_u = o_u ^ -1
         s_k, st_k = K.extent_write_cuda(o_u, n_u, seed, *vec)
         s_r, st_r = ref.extent_write_ref(o_u, n_u, seed, *vec)
         torch.cuda.synchronize()
@@ -618,35 +646,63 @@ def att_check(out, ref, dtype):
     return float(diff.max()), float((diff / (atol + rtol * ref.abs())).max())
 
 
-def phase_local_attention_kernel(device):
-    """The kernel against its plain version on the card. A query scale
-    of 8 makes the logits large enough for the softcap to act."""
-    import torch
-    from repro_torch.kernels.local_attention import ops as LO
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [  # name, B, S, H, Kh, h, window, dtype, softcap, q scale
-        ("hybrid_prefill", *hybrid_att_shape(), bf16, 0.0, 1.0),
-        ("f32_gqa_softcap", 2, 512, 8, 2, 64, 128, f32, 50.0, 8.0),
-        ("bf16_gqa_softcap", 2, 512, 8, 2, 64, 128, bf16, 50.0, 8.0),
-        ("bf16_mha_softcap", 1, 512, 4, 4, 128, 100, bf16, 30.0, 8.0),
-        ("f32_ragged_h80", 1, 333, 4, 1, 80, 64, f32, 0.0, 1.0),
-        ("bf16_ragged_h80", 1, 333, 4, 1, 80, 64, bf16, 0.0, 1.0),
-        ("f32_window_ge_s", 1, 200, 2, 1, 32, 10_000, f32, 0.0, 1.0),
-        ("bf16_window_ge_s", 1, 200, 2, 1, 32, 10_000, bf16, 0.0, 1.0),
-        ("reduced_hybrid", 2, 24, 4, 1, 16, 16, f32, 0.0, 1.0),
-        ("bf16_reduced_hybrid", 2, 24, 4, 1, 16, 16, bf16, 0.0, 1.0),
+def att_cases():
+    """The local_attention kernel's on-card cases: (name, B, S, H, Kh, h,
+    window, dtype, softcap, query scale). Every route and every head width
+    of the wgmma route has cases; a query scale of 8 makes the logits
+    large enough for the softcap to act."""
+    return [
+        ("hybrid_prefill", *hybrid_att_shape(), "bfloat16", 0.0, 1.0),
+        ("f32_gqa_softcap", 2, 512, 8, 2, 64, 128, "float32", 50.0, 8.0),
+        ("bf16_gqa_softcap", 2, 512, 8, 2, 64, 128, "bfloat16", 50.0, 8.0),
+        ("bf16_mha_softcap", 1, 512, 4, 4, 128, 100, "bfloat16", 30.0, 8.0),
+        # the wgmma route: ragged S (333, 3000), B 2, windows 100 and
+        # 2048, GQA 2:1 and 10:1, the softcap on, at h 64, 128 and 256
+        ("bf16_h64_b2_s333_gqa2", 2, 333, 4, 2, 64, 100, "bfloat16", 0.0,
+         1.0),
+        ("bf16_h64_s3000_gqa10_softcap", 1, 3000, 10, 1, 64, 2048,
+         "bfloat16", 30.0, 8.0),
+        ("bf16_h128_b2_s333_gqa2_softcap", 2, 333, 4, 2, 128, 100,
+         "bfloat16", 30.0, 8.0),
+        ("bf16_h128_s3000_gqa10", 1, 3000, 10, 1, 128, 2048, "bfloat16",
+         0.0, 1.0),
+        ("bf16_h256_b2_s333_gqa2_softcap", 2, 333, 4, 2, 256, 100,
+         "bfloat16", 30.0, 8.0),
+        ("bf16_h256_b2_s3000_gqa10", 2, 3000, 10, 1, 256, 2048, "bfloat16",
+         0.0, 1.0),
+        ("f32_ragged_h80", 1, 333, 4, 1, 80, 64, "float32", 0.0, 1.0),
+        ("bf16_ragged_h80", 1, 333, 4, 1, 80, 64, "bfloat16", 0.0, 1.0),
+        ("f32_window_ge_s", 1, 200, 2, 1, 32, 10_000, "float32", 0.0, 1.0),
+        ("bf16_window_ge_s", 1, 200, 2, 1, 32, 10_000, "bfloat16", 0.0,
+         1.0),
+        ("reduced_hybrid", 2, 24, 4, 1, 16, 16, "float32", 0.0, 1.0),
+        ("bf16_reduced_hybrid", 2, 24, 4, 1, 16, 16, "bfloat16", 0.0, 1.0),
     ]
+
+
+def phase_local_attention_kernel(device):
+    """The kernel against its plain version on the card, every case of
+    ``att_cases``; the route the C dispatch takes is held against
+    ``kernel.route``."""
+    import torch
+    from repro_torch.kernels.local_attention import kernel as LK
+    from repro_torch.kernels.local_attention import ops as LO
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for i, (name, B, S, H, Kh, h, window, dtype, cap, qs) in enumerate(
-            cases):
+    for i, (name, B, S, H, Kh, h, window, dt, cap, qs) in enumerate(
+            att_cases()):
+        dtype = getattr(torch, dt)
         q, k, v = att_inputs(B, S, H, Kh, h, dtype, 400 + i, device, qs)
-        with uncounted("local_attention"):
+        with uncounted("local_attention") as w:
             out = LO.local_attention(q, k, v, window=window, softcap=cap)
+            c_route = LK.ROUTES[w.c_route(int(dtype == torch.bfloat16), h)]
+        if c_route != LK.route(dtype, h):
+            raise AssertionError(f"{name}: the C dispatch takes {c_route}, "
+                                 f"kernel.route says {LK.route(dtype, h)}")
         err, ratio = att_check(out, plain_f32(q, k, v, window, cap), dtype)
-        dt = str(dtype)[6:]
         atol, rtol = ATT_TOL[dt]
         ok = ratio <= 1.0
         emit({"phase": "local_attention_kernel", "case": name,
+              "route": c_route,
               "shape": {"B": B, "S": S, "H": H, "Kh": Kh, "h": h},
               "window": window, "softcap": cap, "dtype": dt,
               "max_abs_err": err, "max_err_over_tol": ratio,
@@ -655,6 +711,7 @@ def phase_local_attention_kernel(device):
             raise AssertionError(f"local_attention disagrees with its "
                                  f"plain version: {name}, {err}")
         worst[dt] = max(worst[dt], err)
+        del q, k, v, out
     return worst
 
 
@@ -836,13 +893,18 @@ def phase_hybrid(device):
     step_ms = decode_step_ms(eng, PROMPT_LEN_HYBRID, CAPACITY)
     prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN_HYBRID),
                            device=device)
+    # the median of five timed prefills after a warm-up one: the prefill's
+    # host work makes one sample noisy
+    prefill_runs = []
     with uncounted("local_attention"):
-        eng.api.prefill(params, {"tokens": prompt}, eng.scfg.max_seq)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.api.prefill(params, {"tokens": prompt}, eng.scfg.max_seq)
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.api.prefill(params, {"tokens": prompt}, eng.scfg.max_seq)
+            torch.cuda.synchronize()
+            prefill_runs.append((time.perf_counter() - t0) * 1e3)
+    prefill_runs = prefill_runs[1:]
+    prefill_ms = sorted(prefill_runs)[2]
     reset_launches()
     rep, sch, wall = serve_full(eng, PROMPT_LEN_HYBRID)
     peak = torch.cuda.max_memory_allocated()
@@ -870,6 +932,7 @@ def phase_hybrid(device):
           "admission_groups": groups, "wall_s": wall,
           "tokens_per_s": N_REQ * NEW_TOKENS / wall,
           "decode_ms_per_step_b4": step_ms, "prefill_ms_b1": prefill_ms,
+          "prefill_ms_b1_runs": prefill_runs,
           "peak_mem_bytes": peak, "kv_write_energy_pj": tot["energy_pj"],
           "ber": tot["ber_realized"],
           "write_skip_rate": tot["write_skip_rate"],
@@ -1026,8 +1089,9 @@ def extent_write_entry(launches, worst_abs, worst_rel, eng, sch, device):
     """Times at the full path's shapes: an admission writes the K and V
     rows (36, 1, 288, 2, 128) bf16 of one new prompt — real prefill rows,
     zero past the prompt — over a cold slot (zeros) or over the stale rows
-    a finished request of the run left there; a decode step writes one
-    ring column (36, 4, 1, 2, 128) bf16 per leaf."""
+    a finished request of the run left there (and, as the worst case,
+    over their complement); a decode step writes one ring column
+    (36, 4, 1, 2, 128) bf16 per leaf."""
     import numpy as np
     import torch
     from repro_torch import tree as T
@@ -1057,6 +1121,10 @@ def extent_write_entry(launches, worst_abs, worst_rel, eng, sch, device):
         "admission_cold": time_writes(
             f"{row} over zeros",
             admission([torch.zeros_like(n) for n in news])),
+        # the dense worst case: every plane of every lane flips
+        "admission_all_flip": time_writes(
+            f"{row}, every bit flipped",
+            [(o, o ^ -1, v) for o, _, v in admission(stale)]),
         "decode": time_writes(f"decode column {tuple(old.shape)} bfloat16",
                               [(ops.to_lanes(old), ops.to_lanes(new),
                                 (lv.thr01, lv.thr10, lv.le01, lv.le10))]),
@@ -1131,16 +1199,21 @@ def hybrid_att_shape():
             cfg.head_dim, cfg.local_window)
 
 
-def local_attention_entry(launches, worst, device):
+def local_attention_entry(launches, worst, registers, device):
     """Times at the hybrid prefill's shape: B 1, S 3072, 10 query heads
     over 1 KV head of 256, window 2048, bf16. The bound is the larger of
     4 H h FLOP per live pair at the bf16 tensor-core rate and the bytes
-    of q, k, v and the output at the HBM rate. The library time is one
-    scaled_dot_product_attention call with a boolean band mask (GQA
-    broadcast). Kernel and library call are held against the plain
-    version in float32 on the same inputs."""
+    of q, k, v and the output at the HBM rate; ``bound_ms_split_p`` counts
+    the p.v products twice, as the split p makes them. The library time
+    is one scaled_dot_product_attention call with a boolean band mask
+    (GQA broadcast). Kernel and library call are held against the plain
+    version in float32 on the same inputs. The mma.sync kernel, which the
+    served shape took before the wgmma route, is timed beside it in turns
+    (the comparison that decides the route). ``registers`` is ptxas's
+    report of the served instance."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.local_attention import kernel as LK
     from repro_torch.kernels.local_attention import ops as LO
     from repro_torch.kernels.local_attention import ref as LR
     B, S, H, Kh, h, W = hybrid_att_shape()
@@ -1155,6 +1228,16 @@ def local_attention_entry(launches, worst, device):
     t = time_calls("local_attention", "local_attention_kernel",
                    lambda: LO.local_attention(q, k, v, window=W),
                    lambda: LR.local_attention_ref(q, k, v, window=W), 20)
+    route = LK.route(q.dtype, h)
+    with uncounted("local_attention") as w:
+        err_mma, ratio_mma = att_check(
+            w(q, k, v, window=W, via="mma_sync"), ref, torch.bfloat16)
+        if ratio_mma > 1.0:
+            raise AssertionError(f"the mma_sync kernel disagrees with the "
+                                 f"plain version: {err_mma}")
+        turns = [(via, device_ms(lambda: w(q, k, v, window=W, via=via),
+                                 "local_attention_kernel", 10))
+                 for via in ("mma_sync", route, route, "mma_sync")]
     i = torch.arange(S, device=device)
     d = i[:, None] - i[None, :]
     band = (d >= 0) & (d < W)
@@ -1187,10 +1270,13 @@ def local_attention_entry(launches, worst, device):
         "name": "local_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/local_attention.cu",
         "replaces": "src/repro/kernels/local_attention/kernel.py:82",
+        "cuda_route": route, "registers": registers,
         "launches": launches, "max_abs_err": max(err, *worst.values()),
         "max_abs_err_by_dtype": worst, "timed_inputs_max_abs_err": err,
         "timed_inputs_max_err_over_tol": ratio, **t,
+        "device_ms_in_turns": turns, "mma_sync_max_abs_err": err_mma,
         "bound_ms": max(t_ops, t_bytes),
+        "bound_ms_split_p": max(t_ops * 1.5, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": n_bytes, "library_ms": library_ms,
         "library": "scaled_dot_product_attention, boolean band mask",
@@ -1250,7 +1336,7 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    phase_build()
+    att_registers = phase_build()
     worst_abs, worst_rel = phase_kernel(device)
     s_abs, s_rel = phase_scrub_kernel(device)
     att_worst = phase_local_attention_kernel(device)
@@ -1269,7 +1355,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     h_launches, h_sch, served_worst = phase_hybrid(device)
     entries += [local_attention_entry(h_launches["local_attention"],
-                                      att_worst, device),
+                                      att_worst, att_registers, device),
                 kv_quant_entry(h_launches["kv_quant"],
                                max(q_worst, served_worst), h_sch)]
     print(nvidia_smi_line(), flush=True)

@@ -16,18 +16,36 @@
 // decomposition gives the same bits as the TPU kernel and the plain
 // PyTorch twin (repro_torch/kernels/extent_write/ref.py).
 //
-// Bound: memory. Each lane reads 8 bytes (old, new) and writes 4 (stored),
-// 12 bytes per lane against 3.35 TB/s of HBM; the 32-plane hash loop is
-// integer ALU work that hides under the loads at admission sizes (millions
-// of lanes). The decode column write is ~18k lanes per leaf at batch 4
-// (qwen2.5-3b: 36 layers x 4 slots x 2 kv heads x 128 / 2 bf16 per lane),
-// a few microseconds of traffic, so there the launch latency bounds it.
+// Bound: at admission sizes (millions of lanes) the integer ALU. Each
+// lane reads 8 bytes (old, new) and writes 4 (stored), 12 bytes per lane
+// against 3.35 TB/s of HBM (0.0048 ms for an admission row of qwen2.5-3b,
+// 1,327,104 lanes), but each flipped plane costs a hash of about a dozen
+// integer operations, and about 11 of a lane's 32 planes flip. On an
+// H100 the kernel takes 0.041 ms there (chip_smoke.py's kernels line),
+// 8.7x its byte bound. The decode column write is ~18k lanes per leaf at
+// batch 4 (qwen2.5-3b: 36 layers x 4 slots x 2 kv heads x 128 / 2 bf16
+// per lane), a few microseconds of traffic, so there the launch latency
+// bounds it.
 //
-// Design: a grid-stride loop, one lane per thread per iteration, the 4x32
-// threshold/energy operands staged in shared memory once per block
-// (they are device operands, not compile-time constants, so a change of
-// quality floor swaps operands without a rebuild), warp-shuffle then
-// shared-memory reduction of the four statistics, one partial per block.
+// Design: a grid-stride loop in which a warp takes 32 consecutive lanes
+// per step, one lane per thread, with the 4x32 threshold/energy operands
+// staged in shared memory once per block as (thr01, thr10) and
+// (e01, e10) pairs, one 8-byte broadcast load each per plane (they are
+// device operands, not compile-time constants, so a change of quality
+// floor swaps operands without a rebuild). A warp counts its flipped
+// planes (a popcount per lane, a shuffle scan over the warp) and picks
+// one of two ways for the step, the same for all its threads:
+// * sparse (fewer than 16 flips a lane on average, the main path): the
+//   flipped (lane, plane) pairs go into a per-warp queue in shared memory
+//   and every thread hashes an even share of them, setting fail bits in
+//   the source lane's shared word; no thread hashes a plane that did not
+//   flip and no thread idles while another walks its lane's flips;
+// * dense: every plane of every lane, fully unrolled and branch-free; the
+//   failure bit is masked by the flip bit afterwards and the energy adds
+//   a select per plane.
+// The counts are popcounts of the diff and fail masks. Lanes whose word is
+// unchanged cost only their loads. Warp-shuffle then shared-memory
+// reduction of the four statistics, one partial per block.
 // Later work: 16-byte vector loads and fusing the decode gather/scatter.
 
 #include <cstdint>
@@ -39,6 +57,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPlanes = 32;
+// flipped planes in a warp's 32 lanes from which it hashes every plane of
+// every lane instead of queueing the flipped ones (16 a lane on average:
+// the two ways cost about the same there on an H100)
+constexpr int kDense = 16 * 32;
 
 __global__ void __launch_bounds__(kThreads)
 extent_write_kernel(const uint32_t* __restrict__ old_u,
@@ -51,48 +73,89 @@ extent_write_kernel(const uint32_t* __restrict__ old_u,
                     const float* __restrict__ e10,
                     float* __restrict__ part_energy,
                     int32_t* __restrict__ part_counts) {
-  __shared__ uint32_t s_thr01[kPlanes], s_thr10[kPlanes];
-  __shared__ float s_e01[kPlanes], s_e10[kPlanes];
-  __shared__ float r_energy[kThreads / 32];
-  __shared__ int32_t r_counts[3][kThreads / 32];
+  constexpr int kWarps = kThreads / 32;
+  __shared__ uint2 s_thr[kPlanes];   // (thr01, thr10) per plane
+  __shared__ float2 s_e[kPlanes];    // (e01, e10) per plane
+  __shared__ float r_energy[kWarps];
+  __shared__ int32_t r_counts[3][kWarps];
+  // per warp: the queue of flipped (lane, plane) pairs, the lanes' new
+  // words and their fail masks
+  __shared__ uint16_t s_q[kWarps][32 * kPlanes];
+  __shared__ uint32_t s_nw[kWarps][32], s_fail[kWarps][32];
 
   const int tid = threadIdx.x;
   if (tid < kPlanes) {
-    s_thr01[tid] = thr01[tid];
-    s_thr10[tid] = thr10[tid];
-    s_e01[tid] = e01[tid];
-    s_e10[tid] = e10[tid];
+    s_thr[tid] = make_uint2(thr01[tid], thr10[tid]);
+    s_e[tid] = make_float2(e01[tid], e10[tid]);
   }
   __syncthreads();
 
+  const int warp = tid >> 5, lane = tid & 31;
   float energy = 0.f;
   int32_t n01 = 0, n10 = 0, nerr = 0;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + tid; i < n_lanes;
-       i += stride) {
-    const uint32_t o = old_u[i];
-    const uint32_t nw = new_u[i];
+  // a warp takes 32 consecutive lanes per step, all its threads together
+  for (int64_t base = (int64_t)blockIdx.x * kThreads + warp * 32;
+       base < n_lanes; base += stride) {
+    const int64_t i = base + lane;
+    const bool valid = i < n_lanes;
+    const uint32_t o = valid ? old_u[i] : 0u;
+    const uint32_t nw = valid ? new_u[i] : 0u;
     const uint32_t diff = o ^ nw;
-    uint32_t fail_mask = 0u;
-    if (diff) {
-      // lane indices above 2^32 are refused by the wrapper: the hash
-      // takes the index modulo 2^32 exactly as the uint32 reference does
-      const uint32_t base = counter_hash::hash_base((uint32_t)i, seed);
-#pragma unroll 8
-      for (int b = 0; b < kPlanes; ++b) {
-        const uint32_t bit = 1u << b;
-        if (!(diff & bit)) continue;
-        const bool to_ap = (nw & bit) != 0u;
-        const uint32_t u = counter_hash::uniform_bits(base, b);
-        const bool fail = u < (to_ap ? s_thr01[b] : s_thr10[b]);
-        fail_mask |= fail ? bit : 0u;
-        energy += to_ap ? s_e01[b] : s_e10[b];
-        n01 += to_ap;
-        n10 += !to_ap;
-        nerr += fail;
-      }
+    const int cnt = __popc(diff);
+    n01 += __popc(diff & nw);
+    n10 += __popc(diff & ~nw);
+    // the warp's flipped planes: an inclusive scan of the lanes' counts
+    int pre = cnt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, pre, off);
+      if (lane >= off) pre += t;
     }
-    stored[i] = nw ^ fail_mask;
+    const int total = __shfl_sync(0xffffffffu, pre, 31);
+    uint32_t fail_mask = 0u;
+    if (total >= kDense) {
+      // dense: every plane of every lane, branch-free. Lane indices above
+      // 2^32 are refused by the wrapper: the hash takes the index modulo
+      // 2^32 exactly as the uint32 reference does
+      const uint32_t hb = counter_hash::hash_base((uint32_t)i, seed);
+#pragma unroll
+      for (int b = 0; b < kPlanes; ++b) {
+        const uint2 thr = s_thr[b];
+        const float2 e = s_e[b];
+        const bool to_ap = (nw >> b) & 1u;
+        const uint32_t u = counter_hash::uniform_bits(hb, b);
+        fail_mask |= (uint32_t)(u < (to_ap ? thr.x : thr.y)) << b;
+        energy += (diff >> b) & 1u ? (to_ap ? e.x : e.y) : 0.f;
+      }
+      fail_mask &= diff;
+    } else if (total > 0) {
+      // sparse: the flipped pairs are queued and shared out evenly, so
+      // every thread hashes about total / 32 of them
+      int slot = pre - cnt;
+      s_nw[warp][lane] = nw;
+      s_fail[warp][lane] = 0u;
+      for (uint32_t d = diff; d; d &= d - 1)
+        s_q[warp][slot++] = (uint16_t)(lane << 5 | (__ffs(d) - 1));
+      __syncwarp();
+      for (int j = lane; j < total; j += 32) {
+        const uint32_t e = s_q[warp][j];
+        const int src = e >> 5, b = e & 31;
+        const bool to_ap = (s_nw[warp][src] >> b) & 1u;
+        const uint32_t u = counter_hash::uniform_bits(
+            counter_hash::hash_base((uint32_t)(base + src), seed), b);
+        const uint2 thr = s_thr[b];
+        const float2 en = s_e[b];
+        if (u < (to_ap ? thr.x : thr.y))
+          atomicOr(&s_fail[warp][src], 1u << b);
+        energy += to_ap ? en.x : en.y;
+      }
+      __syncwarp();
+      fail_mask = s_fail[warp][lane];
+      __syncwarp();   // the queue is read before the next step refills it
+    }
+    nerr += __popc(fail_mask);
+    if (valid) stored[i] = nw ^ fail_mask;
   }
 
   // block reduction: warp shuffles, then the first warp over the warps
@@ -102,7 +165,6 @@ extent_write_kernel(const uint32_t* __restrict__ old_u,
     n10 += __shfl_down_sync(0xffffffffu, n10, off);
     nerr += __shfl_down_sync(0xffffffffu, nerr, off);
   }
-  const int warp = tid >> 5, lane = tid & 31;
   if (lane == 0) {
     r_energy[warp] = energy;
     r_counts[0][warp] = n01;

@@ -11,12 +11,13 @@ on the card builds it and later calls reuse it.
 from __future__ import annotations
 
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: build outputs live in the checkout's ``build/`` (listed in .gitignore)
@@ -62,3 +63,41 @@ def build(name: str, force: bool = False) -> Tuple[Path, float]:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib, time.perf_counter() - t0
+
+
+def resource_usage(name: str) -> Tuple[Dict[str, dict], list]:
+    """Compile ``csrc/<name>.cu`` to a cubin with ``-Xptxas -v`` and read
+    what ptxas says of each kernel: {mangled name: {registers,
+    spill_stores, spill_loads, stack_bytes}}, and ptxas's warnings and
+    notes."""
+    fd, cubin = tempfile.mkstemp(suffix=".cubin")
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v",
+             "-o", cubin, str(source(name))], capture_output=True, text=True)
+    finally:
+        os.unlink(cubin)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed for {name}:\n"
+                           f"{proc.stderr}")
+    usage: Dict[str, dict] = {}
+    cur = None
+    for line in proc.stderr.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            cur = usage.setdefault(m.group(1), {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    # warnings, and ptxas's notes on wgmma and setmaxnreg (C75xx)
+    warnings = [ln.strip() for ln in proc.stderr.splitlines()
+                if "warning" in ln.lower() or "(C75" in ln]
+    return usage, warnings

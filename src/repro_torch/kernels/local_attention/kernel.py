@@ -10,9 +10,28 @@ raises if it is not 0.
 
 Bound by operations at the hybrid prefill's shape: 4 x H x h FLOP per
 live (query, key) pair, about 4.3e10 FLOP for recurrentgemma-2b's
-3072-token prompt, against about 35 MB of traffic. bfloat16 inputs run
-on the tensor cores (``mma.sync``, float32 accumulation, probabilities
-kept to 16 significant bits for p.v); float32 inputs on the CUDA cores.
+3072-token prompt (0.0434 ms at the H100's dense bf16 rate; 0.065 ms with
+the p.v products doubled by the split p below), against about 35 MB of
+traffic.
+
+Three kernels (``ROUTES``), one per (dtype, h) as ``route`` says and the
+C dispatch does:
+
+* ``wgmma_tma`` — bfloat16 at h 64, 128, 256 (the served model's 256):
+  a persistent, warp-specialised kernel, one TMA producer warp and two
+  consumer warpgroups on ``wgmma`` taking the tensor cores in turns. At
+  h 256 the consumer warpgroups split the output columns, at 64 and 128
+  the query rows (registers: the 64 x 256 float32 output fits only
+  split).
+* ``mma_sync`` — bfloat16 at any other width (``chip_smoke.py``'s cases
+  use 80, 32 and 16): ``mma.sync`` m16n8k16, which takes any multiple of
+  4 by padding to a power of two, where the wgmma kernel's 64-column TMA
+  boxes need h to be 64, 128 or 256.
+* ``cuda_cores`` — float32: FMAs on the CUDA cores, since the tensor
+  cores would round float32 inputs.
+
+Both bf16 kernels accumulate in float32 and keep the probabilities to 16
+significant bits for p.v (p = hi + lo, two bf16 products).
 
 ``local_attention_cuda`` (the ``LocalAttentionCuda`` instance) is what
 ``ops.local_attention`` calls. For CPU tensors it runs the plain version
@@ -30,6 +49,21 @@ from repro_torch.kernels import build as B
 from repro_torch.kernels.local_attention import ref as R
 
 _DTYPES = (torch.float32, torch.bfloat16)
+#: the kernels of csrc/local_attention.cu, by the number its C dispatch
+#: gives them
+ROUTES = ("cuda_cores", "mma_sync", "wgmma_tma")
+#: head widths the wgmma/TMA kernel is built for
+WGMMA_WIDTHS = (64, 128, 256)
+
+
+def route(dtype: torch.dtype, h: int) -> str:
+    """The kernel the C dispatch (``route`` in csrc/local_attention.cu)
+    launches for ``dtype`` and head width ``h``: float32 on the CUDA
+    cores; bfloat16 through wgmma fed by TMA at h 64, 128 and 256, and
+    through mma.sync at every other width."""
+    if dtype != torch.bfloat16:
+        return "cuda_cores"
+    return "wgmma_tma" if h in WGMMA_WIDTHS else "mma_sync"
 
 
 class LocalAttentionCuda:
@@ -43,16 +77,23 @@ class LocalAttentionCuda:
     def _load(self):
         if self._fn is None:
             lib_path, _ = B.build("local_attention")
-            fn = ctypes.CDLL(str(lib_path)).local_attention_launch
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            lib = ctypes.CDLL(str(lib_path))
+            fn = lib.local_attention_launch
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                           + [ctypes.c_int] * 6
                            + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                               ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            self.c_route = lib.local_attention_route
             self._fn = fn
         return self._fn
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 *, window: int, softcap: float = 0.0) -> torch.Tensor:
+                 *, window: int, softcap: float = 0.0,
+                 via: str | None = None) -> torch.Tensor:
+        """``via`` names a route of ``ROUTES`` for a measurement that holds
+        one kernel against another; by default the route is
+        ``route(q.dtype, h)``."""
         if q.device.type == "cpu":
             return R.local_attention_ref(q, k, v, window=window,
                                          softcap=softcap)
@@ -75,7 +116,9 @@ class LocalAttentionCuda:
         fn = self._load()
         out = torch.empty_like(q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        # -1: the C dispatch picks the route, as ``route`` does
+        rt = -1 if via is None else ROUTES.index(via)
+        rc = fn(rt, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 Bn, S, H, k.shape[2], h, int(window), h ** -0.5,
                 float(softcap), int(q.dtype == torch.bfloat16), stream)
         if rc != 0:

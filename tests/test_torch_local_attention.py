@@ -8,6 +8,10 @@ from fixed seeds. Tolerances are the reference test's: atol 2e-5 in
 float32 and 3e-2 in bfloat16 (the plain version rounds the probabilities
 to bfloat16 before the weighted sum; the Pallas kernel keeps them in
 float32)."""
+import importlib.util
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -130,3 +134,85 @@ def test_bf16_float32_plain_within_one_ulp_of_reference_kernel(case):
                             window=window, softcap=cap, bq=64, bk=32),
                      np.float32)
     assert np.all(np.abs(out - ref) <= 1e-4 + 2.0 ** -7 * np.abs(ref))
+
+
+# ---- the routes of csrc/local_attention.cu ----
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _c_route_rule():
+    """The bf16 widths the C dispatch sends to the wgmma kernel, read from
+    ``route`` in csrc/local_attention.cu, and its route numbering read
+    from the note above it."""
+    src = (ROOT / "src/repro_torch/csrc/local_attention.cu").read_text()
+    body = re.search(r"int route\(int is_bf16, int h\) \{(.*?)\n\}", src,
+                     re.S).group(1)
+    assert "if (!is_bf16) return 0;" in body
+    widths = tuple(int(w) for w in re.findall(r"h == (\d+)", body))
+    note = src[:src.index("int route(int is_bf16, int h)")]
+    assert re.search(r"0 the CUDA cores \(float32\), 1 mma\.sync", note)
+    assert "2 wgmma fed by TMA" in note
+    return widths
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _route_cases():
+    """(dtype, h) of every model configuration and every on-card case."""
+    from repro_torch.configs import ARCHS, get_config
+    hs = {get_config(a).head_dim for a in ARCHS} - {0}
+    hs |= {c[5] for c in _chip_smoke().att_cases()}
+    return sorted((dt, h) for h in hs for dt in ("float32", "bfloat16"))
+
+
+@pytest.mark.parametrize("dtype,h", _route_cases())
+def test_route_is_the_c_dispatch(dtype, h):
+    widths = _c_route_rule()
+    want = ("cuda_cores" if dtype == "float32" else
+            "wgmma_tma" if h in widths else "mma_sync")
+    assert kernel.route(getattr(torch, dtype), h) == want
+    assert kernel.ROUTES.index(want) == (0 if dtype == "float32" else
+                                         2 if h in widths else 1)
+    assert set(widths) == set(kernel.WGMMA_WIDTHS)
+
+
+@pytest.mark.parametrize("route,h", [("cuda_cores", None),
+                                     ("mma_sync", None),
+                                     ("wgmma_tma", 64), ("wgmma_tma", 128),
+                                     ("wgmma_tma", 256)])
+def test_every_route_and_wgmma_width_has_a_chip_case(route, h):
+    cases = _chip_smoke().att_cases()
+    hit = [c for c in cases
+           if kernel.route(getattr(torch, c[7]), c[5]) == route
+           and (h is None or c[5] == h)]
+    assert hit, (route, h)
+
+
+@pytest.mark.parametrize("case", [
+    # B, S, H, Kh, h, window, softcap, q scale, reference tiles (bq, bk)
+    (1, 192, 4, 2, 64, 100, 0.0, 1.0, 64, 32),
+    (1, 256, 10, 1, 64, 72, 30.0, 8.0, 128, 64),
+    (1, 256, 10, 1, 128, 100, 30.0, 8.0, 128, 64),
+    (2, 192, 4, 2, 128, 40, 0.0, 1.0, 64, 32),
+    (1, 192, 10, 1, 256, 100, 0.0, 1.0, 64, 32),
+    (2, 256, 4, 2, 256, 200, 30.0, 8.0, 128, 64),
+], ids=["h64_gqa2_s192", "h64_gqa10_softcap", "h128_gqa10_softcap",
+        "h128_b2_gqa2_s192", "h256_gqa10_s192", "h256_b2_gqa2_softcap"])
+def test_bf16_at_wgmma_widths_matches_reference(case):
+    """The plain version at the wgmma route's head widths against the
+    reference's Pallas kernel in interpret mode, bf16, within the
+    reference's bf16 tolerance: ragged S (192 is no multiple of 128),
+    windows that are no multiple of the 64-key tile, GQA 10:1 and 2:1,
+    the softcap on."""
+    B, S, H, Kh, h, window, cap, q_scale, bq, bk = case
+    q, k, v = _qkv(B, S, H, Kh, h, seed=40 + h + S + H)
+    out, ref = _both([q * q_scale, k, v], torch.bfloat16, window,
+                     softcap=cap, bq=bq, bk=bk)
+    np.testing.assert_allclose(out, ref, rtol=3e-2, atol=3e-2)
