@@ -17,8 +17,8 @@ each printed as one JSON line:
                     case above 2^24 lanes, the admission-row and
                     decode-column shapes of the main path, and the
                     admission row with every plane of every lane flipping
-                    (the dense worst case). Stored words and counts
-                    bit-exact, energy rtol 1e-5;
+                    (the longest queue of flipped planes). Stored words
+                    and counts bit-exact, energy rtol 1e-5;
   4. scrub_kernel — the scrub kernel against its twin the same way, at
                     levels LOW, MID and EXACT: dense and sparse masks,
                     an all-zero mask, a case above 2^24 lanes, a whole
@@ -92,8 +92,7 @@ each printed as one JSON line:
                     one scaled_dot_product_attention call with a boolean
                     band mask (timed only: the port never calls it; held
                     against the f32 plain version within bf16 rounding of
-                    its probabilities and its output) and beside the
-                    mma.sync kernel, device times in turns;
+                    its probabilities and its output);
                     kv_quant: the served cache's K and V leaves.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
@@ -336,7 +335,8 @@ def phase_kernel(device):
          Priority.LOW),
         ("bf16_admission_row", (36, 1, 288, 2, 128), torch.bfloat16,
          Priority.MID),
-        # all 32 planes flip in every lane: the dense (branch-free) path
+        # all 32 planes flip in every lane: the longest queue of flipped
+        # planes a warp can have
         ("bf16_admission_all_flip", (36, 1, 288, 2, 128), torch.bfloat16,
          Priority.MID),
     ]
@@ -1058,15 +1058,34 @@ def time_kernel(name, twin, kernel_name, args, bytes_per_lane, flips):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def warp_flips(o_u, n_u):
+    """Flipped planes of each warp step of the kernel (32 consecutive
+    lanes), as flips a lane: (share of steps at 16 or more, largest)."""
+    import torch
+    table = torch.tensor([bin(v).count("1") for v in range(256)],
+                         dtype=torch.int32, device=o_u.device)
+    per_lane = table[(o_u ^ n_u).contiguous().view(torch.uint8)
+                     .to(torch.int64)].view(-1, 4).sum(1)
+    pad = -per_lane.numel() % 32
+    steps = torch.nn.functional.pad(per_lane, (0, pad)).view(-1, 32).sum(1)
+    return (float((steps >= 16 * 32).float().mean()),
+            float(steps.max()) / 32)
+
+
 def time_writes(name, writes):
     """extent_write over a list of (old lanes, new lanes, vectors), held
-    against the twin, then timed (12 bytes per lane)."""
+    against the twin, then timed (12 bytes per lane). ``warp_steps_16``
+    is the share of the kernel's warp steps whose lanes average 16 or
+    more flipped planes, the longest queues."""
     from repro_torch.kernels.extent_write import ref
-    worst, flips = 0, 0
+    worst, flips, dense, peak = 0, 0, 0.0, 0.0
     for o, n, vec in writes:
         d, f = check_against_twin(o, n, 1, vec)
         worst, flips = max(worst, d), flips + f
-    return {"shape": name, "max_abs_err": worst, **time_kernel(
+        share, most = warp_flips(o, n)
+        dense, peak = dense + share / len(writes), max(peak, most)
+    return {"shape": name, "max_abs_err": worst, "warp_steps_16": dense,
+            "warp_step_flips_per_lane_max": peak, **time_kernel(
         "extent_write", ref.extent_write_ref, "extent_write_kernel",
         [(o, n, 1, *vec) for o, n, vec in writes], 12, flips)}
 
@@ -1121,7 +1140,7 @@ def extent_write_entry(launches, worst_abs, worst_rel, eng, sch, device):
         "admission_cold": time_writes(
             f"{row} over zeros",
             admission([torch.zeros_like(n) for n in news])),
-        # the dense worst case: every plane of every lane flips
+        # the worst case: every plane of every lane flips
         "admission_all_flip": time_writes(
             f"{row}, every bit flipped",
             [(o, o ^ -1, v) for o, _, v in admission(stale)]),
@@ -1207,10 +1226,8 @@ def local_attention_entry(launches, worst, registers, device):
     the p.v products twice, as the split p makes them. The library time
     is one scaled_dot_product_attention call with a boolean band mask
     (GQA broadcast). Kernel and library call are held against the plain
-    version in float32 on the same inputs. The mma.sync kernel, which the
-    served shape took before the wgmma route, is timed beside it in turns
-    (the comparison that decides the route). ``registers`` is ptxas's
-    report of the served instance."""
+    version in float32 on the same inputs. ``registers`` is ptxas's report
+    of the served instance."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.local_attention import kernel as LK
@@ -1228,16 +1245,6 @@ def local_attention_entry(launches, worst, registers, device):
     t = time_calls("local_attention", "local_attention_kernel",
                    lambda: LO.local_attention(q, k, v, window=W),
                    lambda: LR.local_attention_ref(q, k, v, window=W), 20)
-    route = LK.route(q.dtype, h)
-    with uncounted("local_attention") as w:
-        err_mma, ratio_mma = att_check(
-            w(q, k, v, window=W, via="mma_sync"), ref, torch.bfloat16)
-        if ratio_mma > 1.0:
-            raise AssertionError(f"the mma_sync kernel disagrees with the "
-                                 f"plain version: {err_mma}")
-        turns = [(via, device_ms(lambda: w(q, k, v, window=W, via=via),
-                                 "local_attention_kernel", 10))
-                 for via in ("mma_sync", route, route, "mma_sync")]
     i = torch.arange(S, device=device)
     d = i[:, None] - i[None, :]
     band = (d >= 0) & (d < W)
@@ -1270,11 +1277,10 @@ def local_attention_entry(launches, worst, registers, device):
         "name": "local_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/local_attention.cu",
         "replaces": "src/repro/kernels/local_attention/kernel.py:82",
-        "cuda_route": route, "registers": registers,
+        "cuda_route": LK.route(q.dtype, h), "registers": registers,
         "launches": launches, "max_abs_err": max(err, *worst.values()),
         "max_abs_err_by_dtype": worst, "timed_inputs_max_abs_err": err,
         "timed_inputs_max_err_over_tol": ratio, **t,
-        "device_ms_in_turns": turns, "mma_sync_max_abs_err": err_mma,
         "bound_ms": max(t_ops, t_bytes),
         "bound_ms_split_p": max(t_ops * 1.5, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",

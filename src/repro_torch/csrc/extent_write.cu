@@ -21,11 +21,11 @@
 // against 3.35 TB/s of HBM (0.0048 ms for an admission row of qwen2.5-3b,
 // 1,327,104 lanes), but each flipped plane costs a hash of about a dozen
 // integer operations, and about 11 of a lane's 32 planes flip. On an
-// H100 the kernel takes 0.041 ms there (chip_smoke.py's kernels line),
-// 8.7x its byte bound. The decode column write is ~18k lanes per leaf at
-// batch 4 (qwen2.5-3b: 36 layers x 4 slots x 2 kv heads x 128 / 2 bf16
-// per lane), a few microseconds of traffic, so there the launch latency
-// bounds it.
+// H100 80GB HBM3 at 700 W the kernel takes about 0.042 ms there
+// (chip_smoke.py's kernels line), 9x its byte bound. The decode column
+// write is ~18k lanes per leaf at batch 4 (qwen2.5-3b: 36 layers x 4
+// slots x 2 kv heads x 128 / 2 bf16 per lane), a few microseconds of
+// traffic, so there the launch latency bounds it.
 //
 // Design: a grid-stride loop in which a warp takes 32 consecutive lanes
 // per step, one lane per thread, with the 4x32 threshold/energy operands
@@ -33,19 +33,15 @@
 // (e01, e10) pairs, one 8-byte broadcast load each per plane (they are
 // device operands, not compile-time constants, so a change of quality
 // floor swaps operands without a rebuild). A warp counts its flipped
-// planes (a popcount per lane, a shuffle scan over the warp) and picks
-// one of two ways for the step, the same for all its threads:
-// * sparse (fewer than 16 flips a lane on average, the main path): the
-//   flipped (lane, plane) pairs go into a per-warp queue in shared memory
-//   and every thread hashes an even share of them, setting fail bits in
-//   the source lane's shared word; no thread hashes a plane that did not
-//   flip and no thread idles while another walks its lane's flips;
-// * dense: every plane of every lane, fully unrolled and branch-free; the
-//   failure bit is masked by the flip bit afterwards and the energy adds
-//   a select per plane.
-// The counts are popcounts of the diff and fail masks. Lanes whose word is
-// unchanged cost only their loads. Warp-shuffle then shared-memory
-// reduction of the four statistics, one partial per block.
+// planes (a popcount per lane, a shuffle scan over the warp) and queues
+// the flipped (lane, plane) pairs in shared memory; every thread then
+// hashes an even share of the queue and sets fail bits in the source
+// lane's shared word. No thread hashes a plane that did not flip, and no
+// thread idles while another walks its own lane's flips (a loop over each
+// lane's planes, about a third of them flipped, kept every warp on all
+// 32). The counts are popcounts of the diff and fail masks. A warp whose
+// 32 words are all unchanged costs only their loads. Warp-shuffle then
+// shared-memory reduction of the four statistics, one partial per block.
 // Later work: 16-byte vector loads and fusing the decode gather/scatter.
 
 #include <cstdint>
@@ -57,10 +53,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPlanes = 32;
-// flipped planes in a warp's 32 lanes from which it hashes every plane of
-// every lane instead of queueing the flipped ones (16 a lane on average:
-// the two ways cost about the same there on an H100)
-constexpr int kDense = 16 * 32;
 
 __global__ void __launch_bounds__(kThreads)
 extent_write_kernel(const uint32_t* __restrict__ old_u,
@@ -114,24 +106,11 @@ extent_write_kernel(const uint32_t* __restrict__ old_u,
     }
     const int total = __shfl_sync(0xffffffffu, pre, 31);
     uint32_t fail_mask = 0u;
-    if (total >= kDense) {
-      // dense: every plane of every lane, branch-free. Lane indices above
-      // 2^32 are refused by the wrapper: the hash takes the index modulo
-      // 2^32 exactly as the uint32 reference does
-      const uint32_t hb = counter_hash::hash_base((uint32_t)i, seed);
-#pragma unroll
-      for (int b = 0; b < kPlanes; ++b) {
-        const uint2 thr = s_thr[b];
-        const float2 e = s_e[b];
-        const bool to_ap = (nw >> b) & 1u;
-        const uint32_t u = counter_hash::uniform_bits(hb, b);
-        fail_mask |= (uint32_t)(u < (to_ap ? thr.x : thr.y)) << b;
-        energy += (diff >> b) & 1u ? (to_ap ? e.x : e.y) : 0.f;
-      }
-      fail_mask &= diff;
-    } else if (total > 0) {
-      // sparse: the flipped pairs are queued and shared out evenly, so
-      // every thread hashes about total / 32 of them
+    if (total > 0) {
+      // the flipped pairs are queued and shared out evenly, so every
+      // thread hashes about total / 32 of them. Lane indices above 2^32
+      // are refused by the wrapper: the hash takes the index modulo 2^32
+      // exactly as the uint32 reference does
       int slot = pre - cnt;
       s_nw[warp][lane] = nw;
       s_fail[warp][lane] = 0u;

@@ -41,11 +41,12 @@
 //   on the tiles at the edge of a warpgroup's band. At h 64 and 128 each
 //   consumer warpgroup owns 64 of the item's 128 query rows. At h 256 the
 //   float32 output of 64 rows takes 128 registers a thread, which with s
-//   and p does not fit the 168 that ptxas allocates to every thread of
-//   the 384-thread block (setmaxnreg does not raise it), so there both
-//   warpgroups take the same 64 rows and each owns 128 output columns:
-//   each computes q.k^T itself, a third more tensor-core work, and
-//   nothing spills. Shared memory: the Q tile and two K and V stages,
+//   and p does not fit 168, and every layout tried here compiled at 168
+//   registers a thread (the 384-thread block's even share) whatever
+//   setmaxnreg asked; why is not known, since kernels of the same layout
+//   elsewhere give their consumers 240. So there both warpgroups take
+//   the same 64 rows and each owns 128 output columns: each computes
+//   q.k^T itself, a third more tensor-core work, and nothing spills. Shared memory: the Q tile and two K and V stages,
 //   160 KB at h 256.
 // * bfloat16 at any other h (a multiple of 4 up to 256): mma.sync
 //   m16n8k16 with float32 accumulation. One block of 8 warps per (batch x
@@ -395,11 +396,11 @@ constexpr float kLog2e = 1.4426950408889634f;
 // How the two consumer warpgroups share a work item. At h 64 and 128 each
 // owns 64 of the item's 128 query rows. At h 256 the 64 x 256 float32
 // output takes 128 registers a thread, more than fit beside s and p in
-// the 168 a thread of a 384-thread block has (ptxas does not raise the
-// consumers' allocation above that for setmaxnreg), so there both
-// warpgroups take the same 64 rows and each owns 128 of the output
-// columns: each computes s = q k^T itself, a third more tensor-core work
-// than the row split, and no spill.
+// the 168 a thread this kernel compiles to (setmaxnreg did not raise the
+// consumers' allocation in any layout tried, for reasons not known), so
+// there both warpgroups take the same 64 rows and each owns 128 of the
+// output columns: each computes s = q k^T itself, a third more
+// tensor-core work than the row split, and no spill.
 __host__ __device__ constexpr bool col_split(int hd) { return hd == 256; }
 __host__ __device__ constexpr int wg_rows(int hd) {
   return col_split(hd) ? 64 : 128;
@@ -1145,12 +1146,13 @@ int route(int is_bf16, int h) {
   return h == 64 || h == 128 || h == 256 ? 2 : 1;
 }
 
-// the kernel of route `rt`, its HD the head width rounded up to a power
-// of two in [16, 256]
+// the kernel of `route(is_bf16, h)`, its HD the head width rounded up to
+// a power of two in [16, 256]
 template <int HD>
-int launch(int rt, const void* q, const void* k, const void* v, void* out,
-           int B, int S, int H, int Kh, int h, int window, float scale,
-           float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int S, int H, int Kh, int h, int window, float scale,
+           float softcap, int is_bf16, cudaStream_t stream) {
+  const int rt = route(is_bf16, h);
   if constexpr (HD >= 64) {
     if (rt == 2)
       return launch_wgmma<HD>(q, k, v, out, B, S, H, Kh, window, scale,
@@ -1169,10 +1171,8 @@ extern "C" int local_attention_route(int is_bf16, int h) {
 }
 
 // Launches on `stream` and returns a CUDA error code (0 on success).
-// is_bf16 selects bfloat16 tensors, else float32. rt < 0 takes the route
-// for (type, h); a measurement that holds one route against another names
-// it, and a route that does not take (type, h) is refused.
-extern "C" int local_attention_launch(int rt, const void* q, const void* k,
+// is_bf16 selects bfloat16 tensors, else float32.
+extern "C" int local_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int S, int H, int Kh, int h,
                                       int window, float scale,
@@ -1181,23 +1181,19 @@ extern "C" int local_attention_launch(int rt, const void* q, const void* k,
   if (h <= 0 || h > 256 || h % 4 || Kh <= 0 || H % Kh || window <= 0 ||
       S <= 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
-  if (rt < 0) rt = route(is_bf16, h);
-  if ((rt == 0) == (is_bf16 != 0) || rt > 2 ||
-      (rt == 2 && route(is_bf16, h) != 2))
-    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (h <= 16)
-    return launch<16>(rt, q, k, v, out, B, S, H, Kh, h, window, scale,
-                      softcap, st);
+    return launch<16>(q, k, v, out, B, S, H, Kh, h, window, scale, softcap,
+                      is_bf16, st);
   if (h <= 32)
-    return launch<32>(rt, q, k, v, out, B, S, H, Kh, h, window, scale,
-                      softcap, st);
+    return launch<32>(q, k, v, out, B, S, H, Kh, h, window, scale, softcap,
+                      is_bf16, st);
   if (h <= 64)
-    return launch<64>(rt, q, k, v, out, B, S, H, Kh, h, window, scale,
-                      softcap, st);
+    return launch<64>(q, k, v, out, B, S, H, Kh, h, window, scale, softcap,
+                      is_bf16, st);
   if (h <= 128)
-    return launch<128>(rt, q, k, v, out, B, S, H, Kh, h, window, scale,
-                       softcap, st);
-  return launch<256>(rt, q, k, v, out, B, S, H, Kh, h, window, scale,
-                     softcap, st);
+    return launch<128>(q, k, v, out, B, S, H, Kh, h, window, scale, softcap,
+                       is_bf16, st);
+  return launch<256>(q, k, v, out, B, S, H, Kh, h, window, scale, softcap,
+                     is_bf16, st);
 }

@@ -11,8 +11,7 @@ Its byte bound is 12 bytes per lane (read old and new, write stored)
 against the card's 3.35 TB/s, but at admission sizes the integer ALU
 bounds it: each flipped plane costs a hash of about a dozen integer
 operations. A warp queues its flipped (lane, plane) pairs and shares
-them out evenly, or, when most planes flip, hashes every plane
-branch-free. The decode column write (~18k lanes per leaf at batch 4 for
+them out evenly among its threads. The decode column write (~18k lanes per leaf at batch 4 for
 qwen2.5-3b) is bound by launch latency instead.
 
 ``extent_write_cuda`` (the ``ExtentWriteCuda`` instance) is what the

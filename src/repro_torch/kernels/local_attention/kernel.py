@@ -79,8 +79,7 @@ class LocalAttentionCuda:
             lib_path, _ = B.build("local_attention")
             lib = ctypes.CDLL(str(lib_path))
             fn = lib.local_attention_launch
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                           + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                            + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                               ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -89,11 +88,7 @@ class LocalAttentionCuda:
         return self._fn
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 *, window: int, softcap: float = 0.0,
-                 via: str | None = None) -> torch.Tensor:
-        """``via`` names a route of ``ROUTES`` for a measurement that holds
-        one kernel against another; by default the route is
-        ``route(q.dtype, h)``."""
+                 *, window: int, softcap: float = 0.0) -> torch.Tensor:
         if q.device.type == "cpu":
             return R.local_attention_ref(q, k, v, window=window,
                                          softcap=softcap)
@@ -116,9 +111,7 @@ class LocalAttentionCuda:
         fn = self._load()
         out = torch.empty_like(q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        # -1: the C dispatch picks the route, as ``route`` does
-        rt = -1 if via is None else ROUTES.index(via)
-        rc = fn(rt, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 Bn, S, H, k.shape[2], h, int(window), h ** -0.5,
                 float(softcap), int(q.dtype == torch.bfloat16), stream)
         if rc != 0:
