@@ -8,10 +8,14 @@ each printed as one JSON line:
   1. device       — the card's name and power limit (nvidia-smi);
   2. build        — compiles every kernel of src/repro_torch/csrc/ (four
                     sources) with nvcc, one process per source, all
-                    started together, and a fifth reads ptxas's registers
-                    and spills of local_attention's wgmma kernels
-                    (-Xptxas -v): the served instance (h 256) must not
-                    spill;
+                    started together; beside them nvcc reads ptxas's
+                    registers and spills of local_attention's wgmma
+                    kernels and of kv_quant's (-Xptxas -v): the served
+                    instances (h 256; bfloat16) must not spill; and one
+                    counter-hash draw is compiled alone and its integer
+                    instructions counted in SASS (cuobjdump -sass), which
+                    with the SM count and nvidia-smi's clocks.max.sm gives
+                    the bound's integer term (printed);
   3. kernel       — the extent_write kernel against its plain PyTorch
                     twin on the card: f32/bf16/int8, ragged sizes, one
                     case above 2^24 lanes, the admission-row and
@@ -61,9 +65,13 @@ each printed as one JSON line:
                     the last place of the rounding);
   9. kv_quant_kernel
                   — the kv_quant kernel against its twin at the CPU tests'
-                    shapes and levels LOW, MID, HIGH, EXACT: int8 payload,
-                    scales (bit for bit) and error counts exact, each
-                    difference measured and printed;
+                    shapes, on their adversarial cases (half-integer
+                    quotients, an all-zero block, -1 payloads, absmax
+                    below 1e-12, signed zeros, +-absmax, 1, 8191 and 8193
+                    elements) and on flat views 1, 3 or 7 elements past a
+                    16-byte boundary, at levels LOW, MID, HIGH, EXACT:
+                    int8 payload, scales (bit for bit) and error counts
+                    exact, each difference measured and printed;
  10. reduced_hybrid
                   — reduced recurrentgemma-2b in float32 (TF32 off)
                     serving a four-request hybrid trace (24-token prompts,
@@ -93,7 +101,13 @@ each printed as one JSON line:
                     band mask (timed only: the port never calls it; held
                     against the f32 plain version within bf16 rounding of
                     its probabilities and its output);
-                    kv_quant: the served cache's K and V leaves.
+                    kv_quant: the served cache's K leaf, with its draws
+                    per element (set payload bits), registers and spills.
+                    Each bound is the largest of the bytes moved at the
+                    HBM rate, the f32 energy adds at the f32 rate and the
+                    counter-hash draws (extent_write: flipped planes;
+                    scrub: decayed mask bits; kv_quant: set payload bits)
+                    at the INT32 rate, with the terms printed.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
 the script exits non-zero and prints no result; it also refuses to run
@@ -102,6 +116,7 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -113,6 +128,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+INT32_LANES_PER_SM = 64         # INT32 lanes a clock (Hopper white paper)
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor cores
 RTOL_ENERGY = 1e-5              # f32 energy: partials summed in another order
 #: local_attention against its plain version run in float32 on the same
@@ -204,31 +220,80 @@ def random_pair(shape, dtype, seed: int, device):
     return old, torch.where(keep, old, new)
 
 
+def sm_clock_max_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+@functools.lru_cache(maxsize=1)
+def draw_cost() -> dict:
+    """The integer side of the bound: the integer instructions of one
+    counter-hash draw (counted in SASS by ``build.draw_ops``, and listed)
+    and the card's INT32 instructions a second (SMs x lanes x the
+    maximum SM clock)."""
+    import torch
+    from repro_torch.kernels import build as B
+    ops, counted = B.draw_ops()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sm_clock_max_mhz()
+    return {"ops": ops, "ops_from": f"cuobjdump -sass of counter_hash.cuh's "
+            f"folded draw and compare: {counted}", "sms": sms,
+            "sm_clock_max_mhz": mhz,
+            "int_ops_per_s": sms * INT32_LANES_PER_SM * mhz * 1e6}
+
+
+def int_bound_ms(draws) -> float:
+    """The least time ``draws`` counter-hash draws take on the card's
+    INT32 lanes: draws x instructions per draw over the integer rate."""
+    cost = draw_cost()
+    return draws * cost["ops"] / cost["int_ops_per_s"] * 1e3
+
+
 def phase_build():
-    """Build every kernel from source, one nvcc per file in parallel; a
-    sixth nvcc reads ptxas's registers and spills of local_attention's
-    wgmma kernels (``-Xptxas -v``). Returns those of the served instance
-    (h 256), which must not spill."""
+    """Build every kernel from source, one nvcc per file in parallel;
+    beside them, nvcc reads ptxas's registers and spills of
+    local_attention's wgmma kernels and of kv_quant's (``-Xptxas -v``),
+    and one counter-hash draw is compiled alone for ``draw_cost``.
+    Returns the ptxas lines of the served instances (local_attention
+    h 256, kv_quant bfloat16), which must not spill."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build as B
     names = tuple(KERNELS)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names) + 1) as ex:
+    with ThreadPoolExecutor(len(names) + 3) as ex:
         usage = ex.submit(B.resource_usage, "local_attention")
+        q_usage = ex.submit(B.resource_usage, "kv_quant")
+        draw = ex.submit(draw_cost)
         built = list(ex.map(lambda n: B.build(n, force=True), names))
         usage, notes = usage.result()
+        q_usage, q_notes = q_usage.result()
+        draw = draw.result()
     wgmma = {h: next(u for k, u in usage.items()
                      if f"local_attention_kernel_wgmmaILi{h}E" in k)
              for h in (64, 128, 256)}
+    kvq = {dt: next(u for k, u in q_usage.items()
+                    if k.startswith("_Z") and f"kv_quant_kernelI{tag}E" in k)
+           for dt, tag in (("bfloat16", "13__nv_bfloat16"),
+                           ("float32", "f"))}
+    print(f"counter-hash draw: {draw['ops']} integer instructions "
+          f"({draw['ops_from']}); {draw['sms']} SMs x {INT32_LANES_PER_SM} "
+          f"INT32 lanes at clocks.max.sm {draw['sm_clock_max_mhz']:g} MHz",
+          flush=True)
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "kernels": [{"source": str(B.source(n).relative_to(ROOT)),
                        "seconds": sec}
                       for n, (_, sec) in zip(names, built)],
-          "local_attention_wgmma_ptxas": wgmma, "ptxas_notes": notes})
-    if wgmma[256]["spill_stores"] or wgmma[256]["spill_loads"]:
-        raise AssertionError(f"the served local_attention instance spills: "
-                             f"{wgmma[256]}")
-    return wgmma[256]
+          "local_attention_wgmma_ptxas": wgmma, "ptxas_notes": notes,
+          "kv_quant_ptxas": kvq, "kv_quant_ptxas_notes": q_notes,
+          "draw": draw})
+    for what, u in (("local_attention h 256", wgmma[256]),
+                    ("kv_quant bfloat16", kvq["bfloat16"])):
+        if u["spill_stores"] or u["spill_loads"]:
+            raise AssertionError(f"the served {what} instance spills: {u}")
+    return wgmma[256], kvq["bfloat16"]
 
 
 def random_mask(shape, dtype, density, planes, seed, device):
@@ -743,25 +808,50 @@ def check_kv_quant(flat, seed, level):
     return int(e_r.sum()), diff
 
 
-def phase_kv_quant_kernel(device):
-    """The kernel against its twin at the CPU tests' shapes. Returns the
-    largest |payload difference| (the checks raise on any)."""
+def kv_quant_inputs(device):
+    """(name, tensor) of every kv_quant case: the CPU tests' shapes
+    (random, from seeds), their adversarial cases
+    (``kv_quant.cases.adversarial_cases``), and flat views that start 1, 3
+    or 7 elements past a 16-byte boundary (not aligned to a vector)."""
     import torch
-    from repro_torch.core.priority import Priority
-    worst = 0
-    cases = [("bench", (64, 128), torch.bfloat16),
-             ("ragged", (3, 1000, 7), torch.float32),
-             ("hybrid_att_reduced", (1, 2, 16, 1, 16), torch.float32)]
-    for i, (name, shape, dtype) in enumerate(cases):
+    from repro_torch.kernels.kv_quant.cases import adversarial_cases
+    out = []
+    for i, (name, shape, dtype) in enumerate([
+            ("bench", (64, 128), torch.bfloat16),
+            ("ragged", (3, 1000, 7), torch.float32),
+            ("hybrid_att_reduced", (1, 2, 16, 1, 16), torch.float32)]):
         g = torch.Generator(device=device)
         g.manual_seed(500 + i)
-        x = (torch.randn(shape, generator=g, device=device) * 2).to(dtype)
+        out.append((name, (torch.randn(shape, generator=g, device=device)
+                           * 2).to(dtype)))
+    for name, x, dtype in adversarial_cases():
+        out.append((name, torch.from_numpy(x).to(device,
+                                                 getattr(torch, dtype))))
+    g = torch.Generator(device=device)
+    g.manual_seed(510)
+    base = torch.randn((3 * 8192 + 5,), generator=g, device=device) * 2
+    for dtype, offsets in ((torch.bfloat16, (1, 7)), (torch.float32, (1, 3))):
+        whole = base.to(dtype)
+        for off in offsets:
+            out.append((f"offset{off}_{str(dtype)[6:]}", whole[off:]))
+    return out
+
+
+def phase_kv_quant_kernel(device):
+    """The kernel against its twin on every case of ``kv_quant_inputs``
+    at levels LOW, MID, HIGH and EXACT. Returns the largest |payload
+    difference| (the checks raise on any)."""
+    from repro_torch.core.priority import Priority
+    worst = 0
+    for i, (name, x) in enumerate(kv_quant_inputs(device)):
+        flat = x.reshape(-1)
         for level in (Priority.LOW, Priority.MID, Priority.HIGH,
                       Priority.EXACT):
-            errors, diff = check_kv_quant(x.reshape(-1), 0x5EED + i, level)
+            errors, diff = check_kv_quant(flat, 0x5EED + i, level)
             worst = max(worst, diff["payload_max_abs_diff"])
             emit({"phase": "kv_quant_kernel", "case": name,
-                  "shape": list(shape), "dtype": str(dtype)[6:],
+                  "shape": list(x.shape), "dtype": str(x.dtype)[6:],
+                  "offset_bytes": flat.data_ptr() % 16,
                   "level": level.name, "errors": errors, **diff,
                   "ok": True})
     return worst
@@ -1039,23 +1129,27 @@ def time_calls(name, kernel_name, call, plain, reps, per=1):
 
 def time_kernel(name, twin, kernel_name, args, bytes_per_lane, flips):
     """``time_calls`` over the lane argument tuples ``args``, with the
-    bound: the larger of the bytes moved (``bytes_per_lane``, each input
-    read and output written once) over the HBM rate and one f32 energy
-    add per flipped bit over the f32 rate."""
+    bound: the largest of the bytes moved (``bytes_per_lane``, each input
+    read and output written once) over the HBM rate, one f32 energy add
+    per flipped bit over the f32 rate, and one counter-hash draw per
+    flipped bit on the INT32 lanes (``int_bound_ms``)."""
     lanes = sum(a[0].numel() for a in args)
     iters = 200 if lanes < 1 << 20 else 50
 
     def run(fn):
         return lambda: [fn(*a) for a in args]
 
-    t_bytes = bytes_per_lane * lanes / HBM_BYTES_PER_S * 1e3 / len(args)
-    t_ops = flips / F32_FLOPS * 1e3 / len(args)
+    terms = {"bytes": bytes_per_lane * lanes / HBM_BYTES_PER_S * 1e3,
+             "f32_energy_adds": flips / F32_FLOPS * 1e3,
+             "int_draws": int_bound_ms(flips)}
+    terms = {k: v / len(args) for k, v in terms.items()}
     return {"lanes_per_launch": lanes // len(args),
             "flips_per_launch": flips / len(args),
             **time_calls(name, kernel_name, run(kernel_wrapper(name)),
                          run(twin), iters, per=len(args)),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_ms": max(terms.values()), "bound_terms_ms": terms,
+            "bound_by": ("bytes" if terms["bytes"] >= max(terms.values())
+                         else "operations")}
 
 
 def warp_flips(o_u, n_u):
@@ -1159,6 +1253,7 @@ def extent_write_entry(launches, worst_abs, worst_rel, eng, sch, device):
         "energy_max_rel_err": worst_rel,
         "ms": adm["ms"], "plain_ms": adm["plain_ms"],
         "bound_ms": adm["bound_ms"], "bound_by": adm["bound_by"],
+        "bound_terms_ms": adm["bound_terms_ms"],
         "library_ms": None, "shape": adm["shape"], "at": timings}
 
 
@@ -1200,6 +1295,7 @@ def scrub_entry(launches, worst_abs, worst_rel, sch, device):
             t["energy_rel_err"] for t in timings.values())),
         "ms": run["ms"], "plain_ms": run["plain_ms"],
         "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
+        "bound_terms_ms": run["bound_terms_ms"],
         # no single PyTorch call computes the corrective re-write
         "library_ms": None, "shape": run["shape"], "at": timings}
 
@@ -1292,12 +1388,17 @@ def local_attention_entry(launches, worst, registers, device):
                  f"bfloat16, window {W}"}
 
 
-def kv_quant_entry(launches, worst, sch):
+def kv_quant_entry(launches, worst, registers, sch):
     """Times at the served cache's K leaf (8, 4, 2048, 1, 256) bf16, held
-    against the twin on the timed inputs first: the bound is its bytes (2
-    read and 1 written per element) at the HBM rate; the plain version is
-    the twin on the padded float32 rows. ``worst`` is the largest
-    |payload difference| the earlier checks measured."""
+    against the twin on the timed inputs first. The bound is the larger of
+    its bytes (2 read and 1 written per element) at the HBM rate and its
+    counter-hash draws on the INT32 lanes (``int_bound_ms``): one draw
+    per set payload bit, counted on the twin's bytes stored with zero
+    thresholds (q itself, before failures). The plain version is the twin
+    on the padded float32 rows. ``worst`` is the largest |payload
+    difference| the earlier checks measured; ``registers`` ptxas's line
+    of the bfloat16 instance."""
+    import torch
     from repro_torch.core.priority import Priority
     from repro_torch.kernels.kv_quant import kernel as QK
     from repro_torch.kernels.kv_quant import ops as QO
@@ -1305,10 +1406,18 @@ def kv_quant_entry(launches, worst, sch):
     flat = sch.pool.cache["att"]["k"].reshape(-1)
     thr = QO.threshold_tensor(Priority.MID, flat.device)
     _, diff = check_kv_quant(flat, 1, Priority.MID)
+    q, _, _ = QR.kv_quant_ref(QK.pad_rows(flat), 1, torch.zeros_like(thr))
+    table = torch.tensor([bin(v).count("1") for v in range(256)],
+                         dtype=torch.int64, device=flat.device)
+    draws = int(table[q.reshape(-1).view(torch.uint8).to(torch.int64)]
+                .sum())
+    del q
     t = time_calls("kv_quant", "kv_quant_kernel",
                    lambda: QK.kv_quant_cuda(flat, 1, thr),
                    lambda: QR.kv_quant_ref(QK.pad_rows(flat), 1, thr), 50)
     n_bytes = flat.numel() * (flat.element_size() + 1)
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "int_draws": int_bound_ms(draws)}
     return {
         "name": "kv_quant", "route": "cuda",
         "source": "src/repro_torch/csrc/kv_quant.cu",
@@ -1316,7 +1425,15 @@ def kv_quant_entry(launches, worst, sch):
         "launches": launches,
         "max_abs_err": max(worst, diff["payload_max_abs_diff"]),
         "timed_inputs": diff, **t,
-        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_ms": max(terms.values()), "bound_terms_ms": terms,
+        "bound_by": ("bytes" if terms["bytes"] >= terms["int_draws"]
+                     else "operations"),
+        "draws_per_element": draws / flat.numel(),
+        "int_ops_per_draw": draw_cost()["ops"],
+        "int_ops_from": draw_cost()["ops_from"],
+        "sm_clock_max_mhz": draw_cost()["sm_clock_max_mhz"],
+        "registers": registers["registers"],
+        "spill_bytes": registers["spill_stores"] + registers["spill_loads"],
         "bytes": n_bytes,
         # no single PyTorch call quantises and stores through the
         # erased-row write model
@@ -1342,7 +1459,7 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    att_registers = phase_build()
+    att_registers, q_registers = phase_build()
     worst_abs, worst_rel = phase_kernel(device)
     s_abs, s_rel = phase_scrub_kernel(device)
     att_worst = phase_local_attention_kernel(device)
@@ -1363,7 +1480,8 @@ def main() -> int:
     entries += [local_attention_entry(h_launches["local_attention"],
                                       att_worst, att_registers, device),
                 kv_quant_entry(h_launches["kv_quant"],
-                               max(q_worst, served_worst), h_sch)]
+                               max(q_worst, served_worst), q_registers,
+                               h_sch)]
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {

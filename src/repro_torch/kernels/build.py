@@ -101,3 +101,52 @@ def resource_usage(name: str) -> Tuple[Dict[str, dict], list]:
     warnings = [ln.strip() for ln in proc.stderr.splitlines()
                 if "warning" in ln.lower() or "(C75" in ln]
     return usage, warnings
+
+
+#: one folded counter-hash draw held against a threshold
+#: (``counter_hash.cuh``: the ^ of the folded index and plane, draw_key,
+#: the compare), alone in a kernel so that its instructions can be
+#: counted. The thread index stands in for the folded index, so the draw
+#: runs per thread (not on the uniform datapath) and needs no address
+#: arithmetic.
+_DRAW_PROBE = r"""
+#include "counter_hash.cuh"
+extern "C" __global__ void one_draw(unsigned key, unsigned thr_hi,
+                                    unsigned thr, unsigned* out) {
+  if (counter_hash::draw_key(threadIdx.x ^ key, thr_hi) < thr) *out = 1u;
+}
+"""
+#: SASS opcodes of integer work (register moves, IMAD.MOV, are not)
+_INT_OPS = ("LOP3", "IMAD", "SHF", "ISETP", "IADD3", "VIADD", "LEA", "SEL",
+            "PRMT")
+
+
+def draw_ops() -> Tuple[int, str]:
+    """Integer instructions of one counter-hash draw and its compare: the
+    SASS (``nvcc -cubin``, then ``cuobjdump -sass``) of a kernel that
+    makes one folded draw, counted by opcode. Returns (count, listing of
+    the counted instructions)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src, cubin = Path(tmp) / "one_draw.cu", Path(tmp) / "one_draw.cubin"
+        src.write_text(_DRAW_PROBE)
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS[:4], "-cubin", "-I", str(CSRC), "-o",
+             str(cubin), str(src)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the draw probe:\n"
+                               f"{proc.stderr}")
+        sass = subprocess.run(
+            [str(Path(_nvcc()).parent / "cuobjdump"), "-sass", str(cubin)],
+            capture_output=True, text=True, check=True).stdout
+    counted = int_ops(sass)
+    return len(counted), " ".join(counted)
+
+
+def int_ops(sass: str) -> list:
+    """The integer instructions (opcode with modifiers) of a
+    ``cuobjdump -sass`` listing, in order."""
+    ops = [m.group(1) for m in re.finditer(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", sass)]
+    return [op for op in ops if op.split(".")[0] in _INT_OPS
+            and not op.startswith("IMAD.MOV")]
+

@@ -6,16 +6,20 @@ with a plain C interface at first use (``kernels.build``) and bound with
 ``ctypes``; the C function returns ``cudaGetLastError()`` and the wrapper
 raises if that is not 0.
 
-Memory-bound: each element is read once (2 or 4 bytes) and its int8
-payload written once; a bfloat16 K or V leaf of recurrentgemma-2b's
-served cache is 16.8 M elements, 0.015 ms at 3.35 TB/s.
+Bound by integer issue, not memory: each element is read once (2 or 4
+bytes) and its int8 payload written once (a bfloat16 K or V leaf of
+recurrentgemma-2b's served cache is 16.8 M elements, 0.015 ms at
+3.35 TB/s), but every set payload bit costs a counter-hash draw, about
+4 an element. The kernel reads 16-byte vectors and draws every plane of
+every element with compile-time plane constants (csrc/kv_quant.cu says
+why).
 
 ``kv_quant_cuda`` (the ``KvQuantCuda`` instance) is what
 ``ops.kv_quant_store`` calls, on the flat tensor. For CPU tensors it pads
 to whole 64 x 128 blocks and runs the twin (``ref.kv_quant_ref``) — the
 only case in which it does; for CUDA tensors it launches the kernel,
-which reads the flat tensor as it is and treats the padding as zeros, or
-raises. ``launches`` counts kernel launches and nothing else.
+which reads the flat tensor as it is (at any element offset) and treats
+the padding as zeros, or raises. ``launches`` counts kernel launches and nothing else.
 """
 from __future__ import annotations
 

@@ -6,7 +6,12 @@ kernel's twin (the CUDA kernel itself is held against it on the card by
 mode. The same threefry key goes to both. Held exactly: the int8
 payload, the per-block scales bit for bit, the summed bit errors and the
 thresholds; the dequantised mean relative error to 1e-6. Inputs are
-drawn with numpy from fixed seeds."""
+drawn with numpy from fixed seeds; the adversarial ones come from
+``repro_torch.kernels.kv_quant.cases``, which ``chip_smoke.py`` also
+feeds to the kernel on the card. A numpy emulation of the CUDA kernel's
+integer and rounding arithmetic (folded draws, the compare without the
+last xorshift, the carry-collected fail words, rounding by adding
+1.5 * 2^23) is held equal to the twin."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +24,11 @@ from repro.kernels.kv_quant import kv_quant_store as jstore
 from repro.kernels.kv_quant.ops import _thresholds as jthresholds
 from repro_torch import rng
 from repro_torch.core.priority import Priority
+from repro_torch.kernels.extent_write.ref import K_BIT, K_ELEM, M1, M2, M32
 from repro_torch.kernels.kv_quant import (kernel, kv_dequant, kv_quant_ref,
                                           kv_quant_store, ops)
+from repro_torch.kernels.kv_quant.cases import adversarial_cases
+from repro_torch.kernels.kv_quant.ref import BLOCK, QMAX_INV
 
 LEVELS = [Priority.LOW, Priority.MID, Priority.HIGH, Priority.EXACT]
 #: (name, shape, dtype): the benchmark's (64, 128) bf16 tensor, a ragged
@@ -29,6 +37,7 @@ LEVELS = [Priority.LOW, Priority.MID, Priority.HIGH, Priority.EXACT]
 CASES = [("bench", (64, 128), "bfloat16"), ("ragged", (3, 1000, 7),
                                               "float32"),
          ("hybrid_att", (1, 2, 16, 1, 16), "float32")]
+ADVERSARIAL = adversarial_cases()
 
 
 def _pair(shape, dtype, seed):
@@ -120,3 +129,174 @@ def test_wrapper_never_takes_the_twin_off_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         kernel.kv_quant_cuda(x, 1, thr)
     assert kernel.kv_quant_cuda.launches == before
+
+
+@pytest.mark.parametrize("level", LEVELS, ids=lambda p: p.name)
+@pytest.mark.parametrize("name,x,dtype", ADVERSARIAL,
+                         ids=[c[0] for c in ADVERSARIAL])
+def test_adversarial_store_matches_reference(name, x, dtype, level):
+    """Half-integer quotients, an all-zero block, -1 payloads, absmax
+    below 1e-12, signed zeros, +-absmax and lengths around one block:
+    payload, scales and error count exact against the reference."""
+    seed = 300 + 10 * [c[0] for c in ADVERSARIAL].index(name) + int(level)
+    j = jnp.asarray(x).astype(dtype)
+    t = torch.from_numpy(x).to(getattr(torch, dtype))
+    jq, js, jst = jstore(jax.random.PRNGKey(seed), j,
+                         level=JPriority(int(level)))
+    tq, ts, tst = kv_quant_store(rng.PRNGKey(seed), t, level=level)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy().view(np.int32),
+                                  np.asarray(js).view(np.int32))
+    assert int(tst["errors"]) == int(jst["errors"])
+    if name == "zero_block":
+        assert not tq.any() and int(tst["errors"]) == 0
+    if name == "minus_one_block":
+        # payloads 127 then -1 (0xFF): every failed bit is a cleared one
+        sent = np.full(x.size, 0xFF, np.uint8)
+        sent[0] = 127
+        flipped = np.unpackbits(sent ^ tq.numpy().view(np.uint8))
+        assert int(flipped.sum()) == int(tst["errors"])
+
+
+def _fold(v):
+    return v ^ (v >> np.uint64(16))
+
+
+def _mul(x, c):
+    return (x * np.uint64(c)) & np.uint64(M32)
+
+
+def _kernel_emulation(x: np.ndarray, seed: int, thr: np.ndarray):
+    """The CUDA kernel's arithmetic in numpy: per 8192-element block the
+    scale, q by the 1.5 * 2^23 add, folded draws compared on draw_key,
+    and fail words collected as 2 acc + (u >= thr) over elements 3..0
+    and planes 7..0 of every 4-element word."""
+    n = x.size
+    bn = BLOCK[0] * BLOCK[1]
+    xp = np.zeros(-(-n // bn) * bn, np.float32)
+    xp[:n] = x
+    xb = xp.reshape(-1, bn)
+    scale = (np.maximum(np.abs(xb).max(1), np.float32(1e-12))
+             * np.float32(QMAX_INV)).astype(np.float32)
+    y = np.clip(xb / scale[:, None], np.float32(-127), np.float32(127))
+    qf = (y + np.float32(12582912.0)).astype(np.float32).view(np.uint32)
+    q = (qf.reshape(-1) & 0xFF).astype(np.uint64)
+    m = _mul(np.arange(xp.size, dtype=np.uint64), K_ELEM)
+    fm = _fold(m)
+    u64 = np.uint64
+    ge = np.empty((xp.size, 8), bool)
+    for b in range(8):
+        key = _fold(u64(seed)) ^ _fold(u64((b * K_BIT) & M32))
+        mid = _mul(_mul(fm ^ key, M1) ^ (_mul(fm ^ key, M1) >> u64(13)), M2)
+        t = u64(thr[b])
+        ge[:, b] = (mid ^ (t >> u64(16))) >= t
+    acc = np.zeros(xp.size // 4, np.uint64)
+    ge4 = ge.reshape(-1, 4, 8)
+    for i in range(3, -1, -1):
+        for b in range(7, -1, -1):
+            acc = (acc * u64(2) + ge4[:, i, b]) & u64(M32)
+    qw = (q.reshape(-1, 4) << (u64(8) * np.arange(4, dtype=np.uint64))
+          ).sum(1)
+    fail = qw & ~acc & u64(M32)
+    fail_b = (fail[:, None] >> (u64(8) * np.arange(4, dtype=np.uint64))
+              ) & u64(0xFF)
+    stored = (q ^ fail_b.reshape(-1)).astype(np.uint8).view(np.int8)
+    bits = np.unpackbits(fail_b.astype(np.uint8).reshape(-1, 1), axis=1)
+    errors = bits.reshape(-1, bn * 8).sum(1)
+    return stored[:n], scale, errors
+
+
+@pytest.mark.parametrize("level", [Priority.LOW, Priority.MID],
+                         ids=lambda p: p.name)
+@pytest.mark.parametrize("name,x,dtype", ADVERSARIAL,
+                         ids=[c[0] for c in ADVERSARIAL])
+def test_kernel_arithmetic_equals_twin(name, x, dtype, level):
+    """The kernel's rewritten arithmetic gives the twin's payload, scales
+    and error counts bit for bit."""
+    thr = ops.thresholds(level)
+    flat = torch.from_numpy(x).to(getattr(torch, dtype))
+    q, s, e = kv_quant_ref(kernel.pad_rows(flat), 99,
+                           torch.from_numpy(thr.view(np.int32)))
+    eq, es, ee = _kernel_emulation(flat.float().numpy(), 99, thr)
+    np.testing.assert_array_equal(eq, q.reshape(-1)[:x.size].numpy())
+    np.testing.assert_array_equal(es.view(np.int32),
+                                  s.reshape(-1).numpy().view(np.int32))
+    np.testing.assert_array_equal(ee, e.reshape(-1).numpy())
+
+
+def test_rounding_by_adding_1p5_2p23():
+    """(y + 1.5 * 2^23)'s low byte is rint(y)'s two's-complement byte,
+    half to even, for every |y| <= 127.5: half-integers, their float32
+    neighbours, signed zeros and random values."""
+    half = np.arange(-255, 256, dtype=np.float32) * np.float32(0.5)
+    y = np.concatenate([
+        half, np.nextafter(half, np.float32(np.inf)),
+        np.nextafter(half, np.float32(-np.inf)),
+        np.array([0.0, -0.0, 127.0, -127.0], np.float32),
+        np.random.default_rng(5).uniform(-127.5, 127.5, 100_000)
+        .astype(np.float32)])
+    low = (y + np.float32(12582912.0)).astype(np.float32).view(
+        np.uint32) & 0xFF
+    np.testing.assert_array_equal(low, np.rint(y).astype(np.int64) & 0xFF)
+
+
+def test_draw_count_reads_integer_opcodes_from_sass():
+    """The bound's instructions per draw are counted from a cuobjdump
+    listing: integer opcodes with their modifiers, predicated or not;
+    moves, loads, stores and control flow are not counted."""
+    from repro_torch.kernels import build as B
+    sass = """
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   LOP3.LUT R0, R0, c[0x0][0x210], RZ, 0x3c, !PT ;
+        /*0030*/                   IMAD R0, R0, -0x7a143595, RZ ;
+        /*0040*/                   SHF.R.U32.HI R3, RZ, 0xd, R0 ;
+        /*0050*/                   LOP3.LUT R3, R3, R0, RZ, 0x3c, !PT ;
+        /*0060*/                   IMAD R3, R3, -0x3d4d51cb, RZ ;
+        /*0070*/                   LOP3.LUT R3, R3, c[0x0][0x214], RZ, 0x3c, !PT ;
+        /*0080*/                   ISETP.GE.U32.AND P0, PT, R3, c[0x0][0x218], PT ;
+        /*0090*/               @P0 EXIT ;
+        /*00a0*/                   IMAD.MOV.U32 R5, RZ, RZ, 0x1 ;
+        /*00b0*/                   LDC.64 R2, c[0x0][0x220] ;
+        /*00c0*/                   STG.E desc[UR4][R2.64], R5 ;
+        /*00d0*/                   EXIT ;
+        /*00e0*/                   BRA 0xe0;
+    """
+    assert B.int_ops(sass) == ["LOP3.LUT", "IMAD", "SHF.R.U32.HI",
+                               "LOP3.LUT", "IMAD", "LOP3.LUT",
+                               "ISETP.GE.U32.AND"]
+    assert B.int_ops("        /*0100*/ @!P1 IADD3 R0, R1, 0x1, RZ ;") == [
+        "IADD3"]
+
+
+def test_folded_draw_identities():
+    """counter_hash.cuh's folded draw: fmix32's first xorshift folded out
+    of (index * kElem) ^ seed ^ (plane * kBit) gives the twin's hash, and
+    the compare without the last xorshift, (m ^ (thr >> 16)) < thr, is
+    the compare of m ^ (m >> 16), also for every m whose upper half is
+    thr's or next to it (the only m where the two words differ)."""
+    from repro_torch.kernels.extent_write.ref import hash_u32
+    u64 = np.uint64
+    r = np.random.default_rng(21)
+    idx = r.integers(0, 2 ** 32, 20_000, dtype=np.uint64)
+    for seed in (0, 1, 0x5EED, 0xFFFFFFFF, int(r.integers(0, 2 ** 32))):
+        for b in range(8):
+            full = hash_u32(torch.from_numpy(
+                (_mul(idx, K_ELEM) ^ u64(seed) ^ u64((b * K_BIT) & M32))
+                .astype(np.int64))).numpy().astype(np.uint64)
+            folded = (_fold(_mul(idx, K_ELEM)) ^ _fold(u64(seed))
+                      ^ _fold(u64((b * K_BIT) & M32)))
+            x = _mul(folded, M1)
+            mid = _mul(x ^ (x >> u64(13)), M2)
+            np.testing.assert_array_equal(mid ^ (mid >> u64(16)), full)
+    thrs = sorted({int(t) for lv in Priority for t in ops.thresholds(lv)}
+                  | {0, 1, 0xFFFF, 0x10000, 0x10001, 0x1FFFF, M32,
+                     0x80000000})
+    low = r.integers(0, 2 ** 16, 4096, dtype=np.uint64)
+    for t in thrs:
+        m = np.concatenate([
+            u64(((t >> 16) + d) % 2 ** 16 << 16) | low for d in (-1, 0, 1)]
+            + [r.integers(0, 2 ** 32, 4096, dtype=np.uint64)])
+        t = u64(t)
+        np.testing.assert_array_equal((m ^ (t >> u64(16))) < t,
+                                      (m ^ (m >> u64(16))) < t)
