@@ -12,10 +12,11 @@ each printed as one JSON line:
                     registers and spills of local_attention's wgmma
                     kernels and of kv_quant's (-Xptxas -v): the served
                     instances (h 256; bfloat16) must not spill; and one
-                    counter-hash draw is compiled alone and its integer
-                    instructions counted in SASS (cuobjdump -sass), which
-                    with the SM count and nvidia-smi's clocks.max.sm gives
-                    the bound's integer term (printed);
+                    counter-hash draw, collected as kv_quant collects it,
+                    is compiled alone and its integer instructions counted
+                    in SASS (cuobjdump -sass) per pipe (integer ALU, FMA),
+                    which with the SM count and nvidia-smi's clocks.max.sm
+                    gives the bound's integer term (printed);
   3. kernel       — the extent_write kernel against its plain PyTorch
                     twin on the card: f32/bf16/int8, ragged sizes, one
                     case above 2^24 lanes, the admission-row and
@@ -107,7 +108,7 @@ each printed as one JSON line:
                     HBM rate, the f32 energy adds at the f32 rate and the
                     counter-hash draws (extent_write: flipped planes;
                     scrub: decayed mask bits; kv_quant: set payload bits)
-                    at the INT32 rate, with the terms printed.
+                    on the integer pipes, with the terms printed.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
 the script exits non-zero and prints no result; it also refuses to run
@@ -128,7 +129,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
-INT32_LANES_PER_SM = 64         # INT32 lanes a clock (Hopper white paper)
+#: integer instructions an SM issues a clock, per pipe: the INT32 lanes
+#: (Hopper white paper) take LOP3, SHF, IADD3, ISETP and the like; IMAD
+#: and its forms issue to the FMA pipe, whose heavy half (16 lanes of each
+#: of the 4 sub-partitions) takes them. The issue rate, 4 x 32 = 128
+#: instructions a clock, never binds a mix of the two: alu + fma
+#: instructions at 128 a clock take no longer than the larger at 64.
+INT_LANES_PER_SM = {"alu": 64, "fma": 64}
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor cores
 RTOL_ENERGY = 1e-5              # f32 energy: partials summed in another order
 #: local_attention against its plain version run in float32 on the same
@@ -228,28 +235,41 @@ def sm_clock_max_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
+def draw_clocks(alu: int, fma: int):
+    """SM clocks per lane that one draw of ``alu`` integer-ALU and ``fma``
+    FMA-pipe instructions takes at the least, and the pipe that sets it:
+    the larger of each pipe's instructions over its lanes a clock."""
+    per = {"alu": alu / INT_LANES_PER_SM["alu"],
+           "fma": fma / INT_LANES_PER_SM["fma"]}
+    pipe = max(per, key=per.get)
+    return per[pipe], pipe
+
+
 @functools.lru_cache(maxsize=1)
 def draw_cost() -> dict:
     """The integer side of the bound: the integer instructions of one
-    counter-hash draw (counted in SASS by ``build.draw_ops``, and listed)
-    and the card's INT32 instructions a second (SMs x lanes x the
-    maximum SM clock)."""
+    counter-hash draw collected as kv_quant.cu collects it, the cheapest
+    draw counter_hash.cuh offers (counted in SASS by ``build.draw_ops``,
+    per pipe, and listed), and the SM clocks it takes (``draw_clocks``)
+    on the card's SMs at the maximum SM clock. extent_write and scrub
+    draw through uniform_bits, which costs more: their bound is the least
+    the hash could cost them."""
     import torch
     from repro_torch.kernels import build as B
-    ops, counted = B.draw_ops()
+    ops = B.draw_ops()
+    clocks, pipe = draw_clocks(ops["alu"], ops["fma"])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = sm_clock_max_mhz()
-    return {"ops": ops, "ops_from": f"cuobjdump -sass of counter_hash.cuh's "
-            f"folded draw and compare: {counted}", "sms": sms,
-            "sm_clock_max_mhz": mhz,
-            "int_ops_per_s": sms * INT32_LANES_PER_SM * mhz * 1e6}
+    return {**ops, "ops_from": "cuobjdump -sass of counter_hash.cuh's "
+            "folded draw, draw_key and collect", "sm_clocks_per_draw": clocks,
+            "paced_by": pipe, "sms": sms, "sm_clock_max_mhz": mhz,
+            "draws_per_s": sms * mhz * 1e6 / clocks}
 
 
 def int_bound_ms(draws) -> float:
     """The least time ``draws`` counter-hash draws take on the card's
-    INT32 lanes: draws x instructions per draw over the integer rate."""
-    cost = draw_cost()
-    return draws * cost["ops"] / cost["int_ops_per_s"] * 1e3
+    integer pipes (``draw_cost``)."""
+    return draws / draw_cost()["draws_per_s"] * 1e3
 
 
 def phase_build():
@@ -278,10 +298,13 @@ def phase_build():
                     if k.startswith("_Z") and f"kv_quant_kernelI{tag}E" in k)
            for dt, tag in (("bfloat16", "13__nv_bfloat16"),
                            ("float32", "f"))}
-    print(f"counter-hash draw: {draw['ops']} integer instructions "
-          f"({draw['ops_from']}); {draw['sms']} SMs x {INT32_LANES_PER_SM} "
-          f"INT32 lanes at clocks.max.sm {draw['sm_clock_max_mhz']:g} MHz",
-          flush=True)
+    print(f"counter-hash draw: {draw['total']} integer instructions, "
+          f"{draw['alu']} on the integer ALU ({INT_LANES_PER_SM['alu']} "
+          f"lanes a clock per SM) and {draw['fma']} on the FMA pipe "
+          f"({INT_LANES_PER_SM['fma']}), so {draw['sm_clocks_per_draw']:g} "
+          f"SM clocks a draw, paced by the {draw['paced_by']} "
+          f"({draw['ops_from']}: {draw['ops']}); {draw['sms']} SMs at "
+          f"clocks.max.sm {draw['sm_clock_max_mhz']:g} MHz", flush=True)
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "kernels": [{"source": str(B.source(n).relative_to(ROOT)),
                        "seconds": sec}
@@ -808,13 +831,77 @@ def check_kv_quant(flat, seed, level):
     return int(e_r.sum()), diff
 
 
+def kv_quant_cases():
+    """(name, flat float32 values, dtype) of kv_quant's adversarial cases,
+    from fixed integer seeds, each value exactly representable in its
+    dtype. The CPU tests hold the twin against the JAX reference on them,
+    and ``kv_quant_inputs`` the kernel against the twin. Each aims at one
+    edge of the kernel's arithmetic or layout: quotients x / scale on
+    exact half-integers (round half to even decides), an all-zero block
+    (scale from the 1e-12 clamp, no draws), a block of -1 payloads (every
+    bit set: the most draws), a block whose absmax is below 1e-12, +0 and
+    -0 mixed in, values at exactly +-absmax (+-127), and lengths 1, 8191
+    and 8193 around one 8192-element block."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.kv_quant.ref import BLOCK, QMAX_INV
+    n_block = BLOCK[0] * BLOCK[1]
+
+    def half_integers(rng, absmax):
+        # two blocks whose quotients by the kernel's block scale are
+        # exactly k + 1/2 (|k + 1/2| <= 126.5), each holding one +absmax
+        s = np.float32(max(np.float32(absmax), np.float32(1e-12))) \
+            * np.float32(QMAX_INV)
+        k = np.arange(-127, 127, dtype=np.float32) + np.float32(0.5)
+        x = k * s                                   # float32 products
+        x = x[(x / s) == k]                         # quotients exactly k + 1/2
+        out = rng.choice(x, size=2 * n_block).astype(np.float32)
+        out[::n_block] = np.float32(absmax)
+        return out
+
+    cases = []
+    # 127 / 127 is a scale of exactly 1 (bf16 holds every k + 1/2 there);
+    # 3 gives an inexact scale, so the division itself lands on k + 1/2
+    cases.append(("half_integers_bf16",
+                  half_integers(np.random.default_rng(11), 127.0),
+                  "bfloat16"))
+    cases.append(("half_integers_f32",
+                  half_integers(np.random.default_rng(12), 3.0), "float32"))
+    cases.append(("zero_block", np.zeros(n_block, np.float32), "float32"))
+    minus = np.full(n_block, -1.0, np.float32)  # q = -1: byte 0xFF
+    minus[0] = 127.0                            # absmax 127, scale 1
+    cases.append(("minus_one_block", minus, "bfloat16"))
+    cases.append(("absmax_below_1e-12",
+                  np.random.default_rng(13).uniform(
+                      -9e-13, 9e-13, n_block).astype(np.float32),
+                  "float32"))
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal(n_block + 100).astype(np.float32)
+    zeros = rng.random(x.size) < 0.4
+    x[zeros] = np.where(rng.random(zeros.sum()) < 0.5, 0.0, -0.0)
+    cases.append(("signed_zeros", x, "bfloat16"))
+    rng = np.random.default_rng(15)
+    x = np.clip(rng.standard_normal(n_block), -3.9, 3.9).astype(np.float32)
+    edge = rng.random(n_block) < 0.25
+    x[edge] = np.where(rng.random(edge.sum()) < 0.5, 4.0, -4.0)
+    cases.append(("at_absmax", x, "float32"))
+    for n in (1, n_block - 1, n_block + 1):
+        for i, dtype in enumerate(("bfloat16", "float32")):
+            x = np.random.default_rng(16 + 2 * n + i).standard_normal(
+                n).astype(np.float32) * 2.0
+            cases.append((f"n{n}_{dtype}", x, dtype))
+    # each case rounded to its dtype and back: exact in that dtype
+    return [(name, torch.from_numpy(np.ascontiguousarray(x, np.float32))
+             .to(getattr(torch, dtype)).float().numpy(), dtype)
+            for name, x, dtype in cases]
+
+
 def kv_quant_inputs(device):
     """(name, tensor) of every kv_quant case: the CPU tests' shapes
-    (random, from seeds), their adversarial cases
-    (``kv_quant.cases.adversarial_cases``), and flat views that start 1, 3
-    or 7 elements past a 16-byte boundary (not aligned to a vector)."""
+    (random, from seeds), their adversarial cases (``kv_quant_cases``),
+    and flat views that start 1, 3 or 7 elements past a 16-byte boundary
+    (not aligned to a vector)."""
     import torch
-    from repro_torch.kernels.kv_quant.cases import adversarial_cases
     out = []
     for i, (name, shape, dtype) in enumerate([
             ("bench", (64, 128), torch.bfloat16),
@@ -824,7 +911,7 @@ def kv_quant_inputs(device):
         g.manual_seed(500 + i)
         out.append((name, (torch.randn(shape, generator=g, device=device)
                            * 2).to(dtype)))
-    for name, x, dtype in adversarial_cases():
+    for name, x, dtype in kv_quant_cases():
         out.append((name, torch.from_numpy(x).to(device,
                                                  getattr(torch, dtype))))
     g = torch.Generator(device=device)
@@ -1132,7 +1219,7 @@ def time_kernel(name, twin, kernel_name, args, bytes_per_lane, flips):
     bound: the largest of the bytes moved (``bytes_per_lane``, each input
     read and output written once) over the HBM rate, one f32 energy add
     per flipped bit over the f32 rate, and one counter-hash draw per
-    flipped bit on the INT32 lanes (``int_bound_ms``)."""
+    flipped bit on the integer pipes (``int_bound_ms``)."""
     lanes = sum(a[0].numel() for a in args)
     iters = 200 if lanes < 1 << 20 else 50
 
@@ -1392,7 +1479,7 @@ def kv_quant_entry(launches, worst, registers, sch):
     """Times at the served cache's K leaf (8, 4, 2048, 1, 256) bf16, held
     against the twin on the timed inputs first. The bound is the larger of
     its bytes (2 read and 1 written per element) at the HBM rate and its
-    counter-hash draws on the INT32 lanes (``int_bound_ms``): one draw
+    counter-hash draws on the integer pipes (``int_bound_ms``): one draw
     per set payload bit, counted on the twin's bytes stored with zero
     thresholds (q itself, before failures). The plain version is the twin
     on the padded float32 rows. ``worst`` is the largest |payload
@@ -1429,8 +1516,10 @@ def kv_quant_entry(launches, worst, registers, sch):
         "bound_by": ("bytes" if terms["bytes"] >= terms["int_draws"]
                      else "operations"),
         "draws_per_element": draws / flat.numel(),
-        "int_ops_per_draw": draw_cost()["ops"],
+        "int_ops_per_draw": {k: draw_cost()[k]
+                             for k in ("alu", "fma", "total")},
         "int_ops_from": draw_cost()["ops_from"],
+        "sm_clocks_per_draw": draw_cost()["sm_clocks_per_draw"],
         "sm_clock_max_mhz": draw_cost()["sm_clock_max_mhz"],
         "registers": registers["registers"],
         "spill_bytes": registers["spill_stores"] + registers["spill_loads"],

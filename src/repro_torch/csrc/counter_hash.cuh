@@ -1,8 +1,8 @@
 // The counter hash shared by every kernel of the port that draws a
 // stochastic write failure (extent_write.cu, scrub.cu, kv_quant.cu).
 // Two entry points: uniform_bits (one draw from a hash base) and the
-// folded draw (fold, fmix32_mid, draw_key) for kernels that hash many
-// planes of one index.
+// folded draw (fold, fmix32_mid, draw_key, collect) for kernels that hash
+// many planes of one index.
 //
 // It is the JAX package's uniform_bits
 // (src/repro/kernels/extent_write/kernel.py): a deterministic uniform
@@ -71,6 +71,19 @@ __device__ __forceinline__ uint32_t fmix32_mid(uint32_t folded) {
 __device__ __forceinline__ uint32_t draw_key(uint32_t folded,
                                              uint32_t thr_hi) {
   return fmix32_mid(folded) ^ thr_hi;
+}
+
+// 2 acc + (u >= thr), which collects the outcomes of many draws into one
+// word: the subtraction's carry is set when u does not fall below thr,
+// and the multiply-add takes it in (IADD3 and IMAD.X in SASS, so no
+// select or predicated or per draw).
+__device__ __forceinline__ uint32_t collect(uint32_t acc, uint32_t u,
+                                            uint32_t thr) {
+  uint32_t out;
+  asm("{\n\t.reg .u32 d;\n\tsub.cc.u32 d, %1, %2;\n\t"
+      "madc.lo.u32 %0, %3, 2, 0;\n\t}"
+      : "=r"(out) : "r"(u), "r"(thr), "r"(acc));
+  return out;
 }
 
 }  // namespace counter_hash

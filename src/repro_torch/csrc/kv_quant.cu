@@ -20,10 +20,12 @@
 // bytes) and its payload written once (1 byte): a bfloat16 K or V leaf of
 // recurrentgemma-2b's served cache (8, 4, 2048, 1, 256) is 16.8 M
 // elements, 50 MB, 0.015 ms at 3.35 TB/s. But every set payload bit costs
-// a counter-hash draw of 7 integer instructions (draw_key and its
-// compare), about 4 draws an element (a negative byte sets 5-8 bits, a
-// small positive one 1-3): ~470 M instructions, 0.028 ms at 64 INT32
-// lanes a clock on 132 SMs at 1.98 GHz.
+// a counter-hash draw of 8 integer instructions (draw_key and collect),
+// about 4 draws an element (a negative byte sets 5-8 bits, a small
+// positive one 1-3). Five of the 8 (three LOP3, SHF, IADD3) run on the
+// integer ALU and three (two IMAD, IMAD.X) on the FMA pipe, each 64 lanes
+// a clock per SM, so the ALU sets the pace: ~335 M ALU instructions,
+// 0.020 ms on 132 SMs at 1.98 GHz.
 //
 // Design, against that bound:
 //   - Every plane of every element is drawn, unrolled with compile-time
@@ -41,11 +43,12 @@
 //     fold(seed) ^ fold(b * kBit) once per plane, uniform across the
 //     grid; the threshold compare on draw_key, without fmix32's last
 //     shift. A draw is then ^, *, >>, ^, *, ^ and the compare.
-//   - The compare feeds a carry: u - thr sets the carry when the draw
-//     does not fail, and acc = 2 acc + carry (one IMAD.X) collects the
-//     32 outcomes of four elements into one word, so the integer ALU
-//     (shared by ^, >> and compares) is spared a select or a predicated
-//     or per draw; the multiplier pipe takes the collecting.
+//   - The compare feeds a carry (counter_hash::collect): u - thr sets
+//     the carry when the draw does not fail, and acc = 2 acc + carry (one
+//     IMAD.X) collects the 32 outcomes of four elements into one word,
+//     so the integer ALU (shared by ^, >> and compares) is spared a
+//     select or a predicated or per draw; the FMA pipe takes the
+//     collecting.
 //   - Memory: 16-byte loads (8 bfloat16 or 4 float32 a thread), payload
 //     stores of 8 or 4 bytes a thread. The vectors follow the tensor's
 //     16-byte grid, so a flat view at any element offset is read with
@@ -144,17 +147,6 @@ __device__ __forceinline__ void store_vec(int8_t* __restrict__ st,
   }
 }
 
-// 2 acc + (u >= thr): the subtraction's carry is set when u does not fall
-// below thr, and the multiply-add takes it in.
-__device__ __forceinline__ uint32_t collect(uint32_t acc, uint32_t u,
-                                            uint32_t thr) {
-  uint32_t out;
-  asm("{\n\t.reg .u32 d;\n\tsub.cc.u32 d, %1, %2;\n\t"
-      "madc.lo.u32 %0, %3, 2, 0;\n\t}"
-      : "=r"(out) : "r"(u), "r"(thr), "r"(acc));
-  return out;
-}
-
 // `lead` is the number of elements between the 16-byte boundary at or
 // below x and x itself: vector k of a block starts at its element
 // -lead + kN k, so every vector is aligned.
@@ -241,10 +233,10 @@ kv_quant_kernel(const T* __restrict__ x, int64_t n, uint32_t seed,
         const uint32_t mi = m[4 * w + i];
 #pragma unroll
         for (int b = 7; b >= 0; --b)
-          pass = collect(pass,
-                         counter_hash::draw_key(mi ^ (mi >> 16) ^ key[b],
-                                                t_hi[b]),
-                         t[b]);
+          pass = counter_hash::collect(
+              pass, counter_hash::draw_key(mi ^ (mi >> 16) ^ key[b],
+                                           t_hi[b]),
+              t[b]);
       }
       const uint32_t fail = q & ~pass;
       nerr += __popc(fail);

@@ -103,17 +103,18 @@ def resource_usage(name: str) -> Tuple[Dict[str, dict], list]:
     return usage, warnings
 
 
-#: one folded counter-hash draw held against a threshold
-#: (``counter_hash.cuh``: the ^ of the folded index and plane, draw_key,
-#: the compare), alone in a kernel so that its instructions can be
-#: counted. The thread index stands in for the folded index, so the draw
-#: runs per thread (not on the uniform datapath) and needs no address
-#: arithmetic.
+#: one folded counter-hash draw collected into a word as kv_quant.cu
+#: collects it (``counter_hash.cuh``: the ^ of the folded index and
+#: plane, draw_key, collect), alone in a kernel so that its instructions
+#: can be counted. The thread indices stand in for the folded index and
+#: the word collected so far, so the draw runs per thread (not on the
+#: uniform datapath) and needs no address arithmetic.
 _DRAW_PROBE = r"""
 #include "counter_hash.cuh"
 extern "C" __global__ void one_draw(unsigned key, unsigned thr_hi,
                                     unsigned thr, unsigned* out) {
-  if (counter_hash::draw_key(threadIdx.x ^ key, thr_hi) < thr) *out = 1u;
+  *out = counter_hash::collect(
+      threadIdx.y, counter_hash::draw_key(threadIdx.x ^ key, thr_hi), thr);
 }
 """
 #: SASS opcodes of integer work (register moves, IMAD.MOV, are not)
@@ -121,11 +122,12 @@ _INT_OPS = ("LOP3", "IMAD", "SHF", "ISETP", "IADD3", "VIADD", "LEA", "SEL",
             "PRMT")
 
 
-def draw_ops() -> Tuple[int, str]:
-    """Integer instructions of one counter-hash draw and its compare: the
-    SASS (``nvcc -cubin``, then ``cuobjdump -sass``) of a kernel that
-    makes one folded draw, counted by opcode. Returns (count, listing of
-    the counted instructions)."""
+def draw_ops() -> Dict[str, object]:
+    """Integer instructions of one counter-hash draw whose outcome is
+    collected: the SASS (``nvcc -cubin``, then ``cuobjdump -sass``) of a
+    kernel that makes one folded draw and collects it, counted by opcode
+    and by the pipe each issues to (``pipe``). Returns {"alu": n,
+    "fma": n, "total": n, "ops": listing of the counted instructions}."""
     with tempfile.TemporaryDirectory() as tmp:
         src, cubin = Path(tmp) / "one_draw.cu", Path(tmp) / "one_draw.cubin"
         src.write_text(_DRAW_PROBE)
@@ -139,7 +141,9 @@ def draw_ops() -> Tuple[int, str]:
             [str(Path(_nvcc()).parent / "cuobjdump"), "-sass", str(cubin)],
             capture_output=True, text=True, check=True).stdout
     counted = int_ops(sass)
-    return len(counted), " ".join(counted)
+    pipes = [pipe(op) for op in counted]
+    return {"alu": pipes.count("alu"), "fma": pipes.count("fma"),
+            "total": len(counted), "ops": " ".join(counted)}
 
 
 def int_ops(sass: str) -> list:
@@ -150,3 +154,10 @@ def int_ops(sass: str) -> list:
     return [op for op in ops if op.split(".")[0] in _INT_OPS
             and not op.startswith("IMAD.MOV")]
 
+
+def pipe(op: str) -> str:
+    """The pipe an integer instruction issues to on Hopper: the integer
+    multiply-adds (IMAD and its forms: IMAD.X, IMAD.HI, IMAD.WIDE) to the
+    FMA pipe, the rest (LOP3, SHF, IADD3, ISETP, SEL, LEA, PRMT, VIADD) to
+    the integer ALU."""
+    return "fma" if op.split(".")[0] == "IMAD" else "alu"

@@ -7,11 +7,14 @@ mode. The same threefry key goes to both. Held exactly: the int8
 payload, the per-block scales bit for bit, the summed bit errors and the
 thresholds; the dequantised mean relative error to 1e-6. Inputs are
 drawn with numpy from fixed seeds; the adversarial ones come from
-``repro_torch.kernels.kv_quant.cases``, which ``chip_smoke.py`` also
-feeds to the kernel on the card. A numpy emulation of the CUDA kernel's
+``chip_smoke.kv_quant_cases``, which ``chip_smoke.py`` also feeds to the
+kernel on the card. A numpy emulation of the CUDA kernel's
 integer and rounding arithmetic (folded draws, the compare without the
 last xorshift, the carry-collected fail words, rounding by adding
 1.5 * 2^23) is held equal to the twin."""
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +30,6 @@ from repro_torch.core.priority import Priority
 from repro_torch.kernels.extent_write.ref import K_BIT, K_ELEM, M1, M2, M32
 from repro_torch.kernels.kv_quant import (kernel, kv_dequant, kv_quant_ref,
                                           kv_quant_store, ops)
-from repro_torch.kernels.kv_quant.cases import adversarial_cases
 from repro_torch.kernels.kv_quant.ref import BLOCK, QMAX_INV
 
 LEVELS = [Priority.LOW, Priority.MID, Priority.HIGH, Priority.EXACT]
@@ -37,7 +39,18 @@ LEVELS = [Priority.LOW, Priority.MID, Priority.HIGH, Priority.EXACT]
 CASES = [("bench", (64, 128), "bfloat16"), ("ragged", (3, 1000, 7),
                                               "float32"),
          ("hybrid_att", (1, 2, 16, 1, 16), "float32")]
-ADVERSARIAL = adversarial_cases()
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+ADVERSARIAL = _chip_smoke().kv_quant_cases()
 
 
 def _pair(shape, dtype, seed):
@@ -243,7 +256,9 @@ def test_rounding_by_adding_1p5_2p23():
 def test_draw_count_reads_integer_opcodes_from_sass():
     """The bound's instructions per draw are counted from a cuobjdump
     listing: integer opcodes with their modifiers, predicated or not;
-    moves, loads, stores and control flow are not counted."""
+    moves, loads, stores and control flow are not counted. Each is
+    billed to its pipe: IMAD and its forms to the FMA pipe, the rest to
+    the integer ALU."""
     from repro_torch.kernels import build as B
     sass = """
         /*0000*/                   LDC R1, c[0x0][0x28] ;
@@ -267,6 +282,20 @@ def test_draw_count_reads_integer_opcodes_from_sass():
                                "ISETP.GE.U32.AND"]
     assert B.int_ops("        /*0100*/ @!P1 IADD3 R0, R1, 0x1, RZ ;") == [
         "IADD3"]
+    assert [B.pipe(op) for op in B.int_ops(sass)] == [
+        "alu", "fma", "alu", "alu", "fma", "alu", "alu"]
+    assert [B.pipe(op) for op in ("IMAD.X", "IMAD.HI.U32", "IMAD.WIDE.U32",
+                                  "IADD3.X", "LEA.HI", "VIADD")] == [
+        "fma", "fma", "fma", "alu", "alu", "alu"]
+
+
+@pytest.mark.parametrize("alu,fma,clocks,pipe", [
+    (5, 3, 5 / 64, "alu"), (2, 6, 6 / 64, "fma"), (4, 4, 4 / 64, "alu")])
+def test_draw_clocks_take_the_busier_pipe(alu, fma, clocks, pipe):
+    """chip_smoke's integer term: a draw takes the larger of its ALU and
+    its FMA-pipe instructions over 64 lanes a clock per SM, not all of its
+    instructions over the ALU's lanes."""
+    assert _chip_smoke().draw_clocks(alu, fma) == (clocks, pipe)
 
 
 def test_folded_draw_identities():
