@@ -109,6 +109,33 @@ each printed as one JSON line:
                     counter-hash draws (extent_write: flipped planes;
                     scrub: decayed mask bits; kv_quant: set payload bits)
                     on the integer pipes, with the terms printed.
+ 13. rng_device   — the device threefry draws (``rng.bits_t``,
+                    ``uniform_t``, ``bernoulli_t``) against the host
+                    numpy ones, bit for bit, on 2^20 counters and on the
+                    last 2^20 counters of a full-width admission leaf's
+                    42,467,328 draws; and the draws' time over that leaf;
+ 14. oracle       — the eager oracle on the card against the CPU's, bit
+                    for bit ((37, 129) bf16, (33,) f32); at the admission
+                    shape (36, 1, 288, 2, 128) bf16 (real prefill rows
+                    over a stale prompt's) against the cuda backend:
+                    flips identical, energy within 1e-4, BERs within 6
+                    binomial sigma, both timed; then the 8 requests
+                    through backend="oracle" (no kernel launches);
+ 15. prefix       — the 8 requests with one shared 192-token system
+                    prompt, prefix cache on (chunk 8, table 256) and
+                    off: at least one linked admission, energy saved,
+                    kv_prefill energy lower with the cache on, two
+                    extent_write launches per admission group and per
+                    decode step in both;
+ 16. soft_errors  — the 8 requests at soft-error BER 1e-6, hardened and
+                    unhardened: strikes > 0 and within 6 sigma of
+                    P(strike) x the bits the hook covered; the hook's
+                    ms per admission leaf.
+
+They run in the order build, kernel, scrub_kernel,
+local_attention_kernel, kv_quant_kernel, rng_device, reduced,
+reduced_hybrid, full, retention, oracle, prefix, soft_errors, hybrid;
+then nvidia-smi's line again and the kernels line.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
 the script exits non-zero and prints no result; it also refuses to run
@@ -572,21 +599,29 @@ PROMPT_LEN, NEW_TOKENS, CAPACITY, N_REQ = 256, 32, 4, 8
 PROMPT_LEN_HYBRID = 3072
 
 
-def serve_full(eng, prompt_len, scrub_policy=None):
+def serve_full(eng, prompt_len, scrub_policy=None, shared=0):
     """Drive a path once at full width: the 8 requests through the
     continuous scheduler, every burst under
     ``set_sync_debug_mode("error")``; checks the tokens and the ledger.
-    The caller sets the launch counts to 0 just before and reads them
-    just after. Returns (report, scheduler, wall seconds)."""
+    ``shared`` > 0 makes the first ``shared`` tokens of every prompt one
+    common system prompt (numpy, seed 1234). The caller sets the launch
+    counts to 0 just before and reads them just after. Returns (report,
+    scheduler, wall seconds)."""
     import numpy as np
     import torch
     from repro_torch.serve import ContinuousScheduler, Request
     cfg = eng.cfg
     rs = np.random.default_rng(2)
-    reqs = [Request(rid=i, prompt={"tokens": torch.from_numpy(
-        rs.integers(0, cfg.vocab_size, (1, prompt_len))).to(eng.device)},
-        new_tokens=NEW_TOKENS, arrival=4 * i,
-        app_id="chat" if i % 2 else "batch") for i in range(N_REQ)]
+    toks = [rs.integers(0, cfg.vocab_size, (1, prompt_len))
+            for _ in range(N_REQ)]
+    if shared:
+        head = np.random.default_rng(1234).integers(0, cfg.vocab_size,
+                                                    (1, shared))
+        for t in toks:
+            t[:, :shared] = head
+    reqs = [Request(rid=i, prompt={"tokens": torch.from_numpy(t).to(
+        eng.device)}, new_tokens=NEW_TOKENS, arrival=4 * i,
+        app_id="chat" if i % 2 else "batch") for i, t in enumerate(toks)]
     sch = ContinuousScheduler(eng, capacity=CAPACITY,
                               scrub_policy=scrub_policy)
     torch.cuda.synchronize()
@@ -707,6 +742,271 @@ def phase_retention(device, eng_full):
           "peak_mem_bytes": peak, "bursts_sync_free": True,
           "launches": launches, **lt, "ok": True})
     return launches["scrub"], sch
+
+
+# ---------------------------------------------------------------------------
+# the oracle backend, soft errors and the prefix cache
+# ---------------------------------------------------------------------------
+
+#: draws of one full-width admission leaf: (36, 1, 288, 2, 128) bf16 x 16
+ADMISSION_LEAF = (36, 1, 288, 2, 128)
+
+
+def phase_rng_device(device):
+    """The device threefry (``rng.bits_t``/``uniform_t``/``bernoulli_t``)
+    against the host numpy draws, bit for bit, on 2^20 counters and on
+    the last 2^20 counters of a full-width admission leaf's draws; and
+    its time over all of that leaf's draws."""
+    import numpy as np
+    import torch
+    from repro_torch import rng
+    key = rng.fold_in(rng.PRNGKey(21), 4)
+    n = 1 << 20
+    host = rng.bits(key, (n,))
+    got = {"bits": rng.bits_t(key, (n,), device).cpu().numpy(),
+           "uniform": rng.uniform_t(key, (n,), device).cpu().numpy(),
+           "bernoulli": rng.bernoulli_t(key, 0.3, (n,), device).cpu()
+           .numpy()}
+    want = {"bits": host.astype(np.int64),
+            "uniform": rng.uniform(key, (n,)),
+            "bernoulli": rng.bernoulli(key, 0.3, (n,))}
+    total = int(np.prod(ADMISSION_LEAF)) * 16
+    ctr = np.arange(total - n, total, dtype=np.uint32)
+    y0, y1 = rng.threefry2x32(key, np.zeros_like(ctr), ctr)
+    want["window"] = (y0 ^ y1).astype(np.int64)
+    got["window"] = rng.counter_bits_t(key, torch.from_numpy(
+        ctr.astype(np.int64)).to(device)).cpu().numpy()
+    mismatched = {k: int(np.count_nonzero(
+        got[k].view(np.int32) != want[k].view(np.int32))
+        if k == "uniform" else np.count_nonzero(got[k] != want[k]))
+        for k in want}
+    if any(mismatched.values()):
+        raise AssertionError(f"device threefry differs from the host's: "
+                             f"{mismatched}")
+    ms = cuda_ms(lambda: rng.bits_t(key, (total,), device), iters=5,
+                 warmup=1)
+    emit({"phase": "rng_device", "counters": n,
+          "window": [total - n, total], "mismatched": mismatched,
+          "bits_ms_admission_leaf": ms, "draws": total,
+          "draws_per_s": total / ms * 1e3, "ok": True})
+
+
+def admission_rows(eng, seed):
+    """The K and V prefill rows (36, 1, 288, 2, 128) bf16 of one random
+    prompt."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    prompt_len = eng.scfg.max_seq - eng.scfg.max_new_tokens
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, eng.cfg.vocab_size, (1, prompt_len))).to(eng.device)
+    _, rows = eng.api.prefill(eng.params, {"tokens": prompt},
+                              eng.scfg.max_seq)
+    return T.leaves(rows)
+
+
+def phase_oracle(device, eng_full):
+    """The eager oracle on the card: bit-exact with the CPU oracle on
+    small pairs; at the full admission shape, flips equal to the cuda
+    backend's and BER within sampling noise of it, with both timed;
+    then the 8 requests served through backend="oracle"."""
+    import dataclasses
+    import torch
+    from repro_torch import rng
+    from repro_torch.core.priority import Priority
+    from repro_torch.memory import get_backend, leaf_vectors
+    from repro_torch.serve import ServingEngine
+    oracle = get_backend("oracle")
+    cpu = torch.device("cpu")
+    small = []
+    for shape, dtype, seed in (((37, 129), torch.bfloat16, 31),
+                               ((33,), torch.float32, 32)):
+        old, new = random_pair(shape, dtype, seed, device)
+        key = rng.PRNGKey(seed)
+        out = []
+        for dev in (device, cpu):
+            lv = leaf_vectors(dtype, Priority.LOW, dev)
+            s, st = oracle.leaf_write(key, old.to(dev), new.to(dev), lv)
+            out.append((s.cpu(), st.host_dict()))
+        (s_d, h_d), (s_c, h_c) = out
+        it = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        bad = int((s_d.view(it) != s_c.view(it)).sum())
+        if bad or any(h_d[k] != h_c[k] for k in (
+                "flips01", "flips10", "bit_errors", "latency_ns")):
+            raise AssertionError(f"oracle on the card differs from the "
+                                 f"CPU's at {shape}: {bad} words, "
+                                 f"{h_d} vs {h_c}")
+        small.append({"shape": list(shape), "dtype": str(dtype)[6:],
+                      "flips": h_d["bits_written"],
+                      "errors": h_d["bit_errors"],
+                      "energy_pj": [h_d["energy_pj"], h_c["energy_pj"]]})
+    # full-width admission: real prefill rows over a stale prompt's rows
+    olds, news = admission_rows(eng_full, 12), admission_rows(eng_full, 13)
+    vecs = eng_full.vectors_for_floor(Priority.LOW)
+    cuda_be = get_backend("cuda")
+    leaves = []
+    for i, (o, n, lv) in enumerate(zip(olds, news, vecs)):
+        if lv is None:
+            continue
+        key = rng.fold_in(rng.PRNGKey(14), i)
+        _, so = oracle.leaf_write(key, o, n, lv)
+        with uncounted("extent_write"):
+            _, sc = cuda_be.leaf_write(key, o, n, lv)
+            ho, hc = so.host_dict(), sc.host_dict()
+            cuda_leaf_ms = cuda_ms(
+                lambda: cuda_be.leaf_write(key, o, n, lv), 20)
+        oracle_leaf_ms = cuda_ms(lambda: oracle.leaf_write(key, o, n, lv),
+                                 5, warmup=1)
+        flips = ho["bits_written"]
+        p = (ho["bit_errors"] + hc["bit_errors"]) / (2 * flips)
+        sigma = math.sqrt(2 * p * (1 - p) / flips)
+        rel_e = abs(ho["energy_pj"] - hc["energy_pj"]) / hc["energy_pj"]
+        if not ((ho["flips01"], ho["flips10"]) == (hc["flips01"],
+                                                   hc["flips10"])
+                and rel_e <= 1e-4
+                and abs(ho["ber_realized"] - hc["ber_realized"])
+                <= 6 * sigma):
+            raise AssertionError(f"oracle and cuda disagree at the "
+                                 f"admission shape: {ho} vs {hc}")
+        leaves.append({"leaf": i, "shape": list(o.shape), "flips": flips,
+                       "ber": [ho["ber_realized"], hc["ber_realized"]],
+                       "ber_sigma": sigma, "energy_rel_diff": rel_e,
+                       "oracle_ms": oracle_leaf_ms, "cuda_ms": cuda_leaf_ms})
+    eng = ServingEngine(eng_full.cfg, dataclasses.replace(
+        eng_full.scfg, backend="oracle"), eng_full.params, device=device)
+    reset_launches()
+    rep, _, wall = serve_full(eng, PROMPT_LEN)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the oracle path launched a kernel: "
+                             f"{launches}")
+    tot = rep["total"]
+    emit({"phase": "oracle", "small": small, "admission_leaves": leaves,
+          "serve": {"backend": "oracle", "requests": N_REQ,
+                    "decode_steps": rep["decode_steps"],
+                    "bursts": rep["bursts"], "wall_s": wall,
+                    "tokens_per_s": N_REQ * NEW_TOKENS / wall,
+                    "kv_write_energy_pj": tot["energy_pj"],
+                    "ber": tot["ber_realized"],
+                    "write_skip_rate": tot["write_skip_rate"],
+                    "bursts_sync_free": True, "launches": launches},
+          "ok": True})
+
+
+#: the prefix phase's shared system prompt: the first 192 of 256 tokens
+SHARED_PREFIX = 192
+#: the soft-error phase's upset rate per stored bit
+SOFT_ERROR_BER = 1e-6
+
+
+def phase_prefix(device, eng_full):
+    """The 8 requests with one shared 192-token system prompt, prefix
+    cache on (chunk 8, table 256) and off, cuda backend."""
+    import dataclasses
+    from repro_torch.serve import ServingEngine
+    runs = {}
+    for on in (True, False):
+        eng = ServingEngine(eng_full.cfg, dataclasses.replace(
+            eng_full.scfg, prefix_cache=on, prefix_chunk=8,
+            prefix_table_size=256), eng_full.params, device=device)
+        reset_launches()
+        rep, _, wall = serve_full(eng, PROMPT_LEN, shared=SHARED_PREFIX)
+        launches = read_launches()
+        check_write_launches(launches, rep)
+        row = {"wall_s": wall, "tokens_per_s": N_REQ * NEW_TOKENS / wall,
+               "kv_prefill_energy_pj": rep["streams"]["kv_prefill"][
+                   "energy_pj"],
+               "kv_write_energy_pj": rep["total"]["energy_pj"],
+               "ber": rep["total"]["ber_realized"],
+               "admission_groups": rep["pool"]["admission_groups"],
+               "decode_steps": rep["decode_steps"],
+               "extent_write_launches": launches["extent_write"]}
+        if on:
+            p = rep["prefix"]
+            row.update({k: p[k] for k in (
+                "hits", "misses", "hit_rate", "linked_admissions",
+                "linked_cols", "cow_events", "write_energy_saved_pj",
+                "cow_energy_pj", "cam_energy_pj", "net_energy_saved_pj")})
+        runs["on" if on else "off"] = row
+    on, off = runs["on"], runs["off"]
+    if not (on["linked_admissions"] >= 1
+            and on["write_energy_saved_pj"] > 0
+            and on["kv_prefill_energy_pj"] < off["kv_prefill_energy_pj"]):
+        raise AssertionError(f"prefix cache saved nothing: {runs}")
+    emit({"phase": "prefix", "shared_prefix": SHARED_PREFIX, "chunk": 8,
+          "table_size": 256, "prompt_len": PROMPT_LEN, **runs,
+          "bursts_sync_free": True, "ok": True})
+
+
+def strike_probability(ber: float) -> float:
+    """P(uniform < f32(ber)) for the float32 draws of ``rng.uniform``:
+    they are k / 2^23, so it is the count of k with k / 2^23 < f32(ber),
+    over 2^23 (1.0729e-6 at ber 1e-6)."""
+    import numpy as np
+    p32 = float(np.float32(ber))
+    return math.ceil(p32 * 2 ** 23) / 2 ** 23
+
+
+def phase_soft_errors(device, eng_full):
+    """The 8 requests at soft-error BER 1e-6 (``SOFT_ERROR_BER``),
+    hardened and unhardened:
+    strikes > 0 and within 6 sigma of P(strike) x the bits the hook
+    covered (hardened: only the planes not pinned EXACT); and the hook's
+    ms per full-width admission leaf."""
+    import dataclasses
+    import torch
+    from repro_torch import rng
+    from repro_torch import tree as T
+    from repro_torch.core.approx_store import soft_error_strikes
+    from repro_torch.core.priority import Priority, bitplane_priorities
+    from repro_torch.serve import ServingEngine
+    ber = SOFT_ERROR_BER
+    p = strike_probability(ber)
+    leaf = torch.randn(ADMISSION_LEAF, device=device).to(torch.bfloat16)
+    runs = {}
+    for hardened in (True, False):
+        eng = ServingEngine(eng_full.cfg, dataclasses.replace(
+            eng_full.scfg, soft_error_ber=ber,
+            soft_error_hardened=hardened), eng_full.params, device=device)
+        reset_launches()
+        rep, sch, wall = serve_full(eng, PROMPT_LEN)
+        launches = read_launches()
+        check_write_launches(launches, rep)
+        # the hook covers every admitted row of each K/V leaf, and every
+        # decode step's gathered column of all slots, on the planes the
+        # driver leaves strikable
+        covered = 0
+        for (_, x), lvl, ax in zip(T.flatten(sch.pool.cache),
+                                   eng.plan.leaf_levels,
+                                   eng.plan.leaf_seq_axis):
+            if lvl is None:
+                continue
+            codes = bitplane_priorities(x.dtype, Priority.LOW)
+            planes = (int((codes != int(Priority.EXACT)).sum())
+                      if hardened else codes.size)
+            covered += planes * (
+                rep["pool"]["admissions"] * x.numel() // CAPACITY
+                + rep["decode_steps"] * x.numel() // x.shape[ax])
+        want = p * covered
+        sigma = math.sqrt(covered * p * (1 - p))
+        strikes = rep["total"]["soft_strikes"]
+        mode = "hardened" if hardened else "unhardened"
+        if not (strikes > 0 and abs(strikes - want) <= 6 * sigma):
+            raise AssertionError(f"soft errors ({mode}): {strikes} "
+                                 f"strikes, expected {want} +- {sigma}")
+        key = rng.PRNGKey(40)
+        hook_ms = cuda_ms(lambda: soft_error_strikes(key, leaf, ber,
+                                                     hardened), 5, warmup=1)
+        runs[mode] = {
+            "strikes": strikes, "covered_bits": covered,
+            "expected": want, "sigma": sigma, "planes": planes,
+            "tokens_per_s": N_REQ * NEW_TOKENS / wall, "wall_s": wall,
+            "ber": rep["total"]["ber_realized"],
+            "hook_ms_admission_leaf": hook_ms,
+            "extent_write_launches": launches["extent_write"]}
+    emit({"phase": "soft_errors", "soft_error_ber": ber,
+          "strike_probability": p, **runs, "bursts_sync_free": True,
+          "ok": True})
 
 
 def att_inputs(B, S, H, Kh, h, dtype, seed, device, q_scale=1.0):
@@ -1292,19 +1592,13 @@ def extent_write_entry(launches, worst_abs, worst_rel, eng, sch, device):
     a finished request of the run left there (and, as the worst case,
     over their complement); a decode step writes one ring column
     (36, 4, 1, 2, 128) bf16 per leaf."""
-    import numpy as np
     import torch
     from repro_torch import tree as T
     from repro_torch.core.priority import Priority
     from repro_torch.kernels.extent_write import ops
     from repro_torch.memory import leaf_vectors
-    prompt_len = eng.scfg.max_seq - eng.scfg.max_new_tokens
-    prompt = torch.from_numpy(np.random.default_rng(11).integers(
-        0, eng.cfg.vocab_size, (1, prompt_len))).to(device)
-    _, rows = eng.api.prefill(eng.params, {"tokens": prompt},
-                              eng.scfg.max_seq)
     vecs = eng.vectors_for_floor(Priority.LOW)
-    news = T.leaves(rows)
+    news = admission_rows(eng, 11)
     stale = T.leaves(sch.pool.extract_rows([0]))
 
     def admission(olds):
@@ -1553,6 +1847,7 @@ def main() -> int:
     s_abs, s_rel = phase_scrub_kernel(device)
     att_worst = phase_local_attention_kernel(device)
     q_worst = phase_kv_quant_kernel(device)
+    phase_rng_device(device)
     phase_reduced(device)
     phase_reduced_hybrid(device)
     launches, eng, sch = phase_full(device)
@@ -1562,7 +1857,12 @@ def main() -> int:
     entries = [extent_write_entry(launches, worst_abs, worst_rel, eng, sch,
                                   device),
                scrub_entry(s_launches, s_abs, s_rel, r_sch, device)]
-    del eng, sch, r_sch
+    del sch, r_sch
+    gc.collect()
+    phase_oracle(device, eng)
+    phase_prefix(device, eng)
+    phase_soft_errors(device, eng)
+    del eng
     gc.collect()
     torch.cuda.empty_cache()
     h_launches, h_sch, served_worst = phase_hybrid(device)

@@ -6,13 +6,25 @@
   python -m repro_torch.launch.serve --monolithic --batch 4
   python -m repro_torch.launch.serve --ambient-k 350 \
       --retention-scale 1000 --scrub-policy periodic --scrub-interval 8
+  python -m repro_torch.launch.serve --backend oracle --soft-error-ber 1e-6
+  python -m repro_torch.launch.serve --prefix-cache --shared-prefix 8
   python -m repro_torch.launch.serve --reduced --device cpu ...   # CPU
 
 Runs on CUDA unless ``--device cpu``; ``--reduced`` shrinks the config
 (float32, a few narrow layers). ``--backend`` picks the write path from
 the ``repro_torch.memory`` registry (default: ``cuda`` on a CUDA device,
-``lanes_ref`` on the CPU). Synthetic prompts are drawn with numpy and
-differ from the JAX launcher's; replay a trace for a like-for-like run.
+``lanes_ref`` on the CPU; ``oracle`` is the eager bit-unpacked write).
+Synthetic prompts are drawn with numpy and differ from the JAX
+launcher's; replay a trace for a like-for-like run.
+
+``--soft-error-ber`` turns on the post-write radiation-upset hook (the
+hardened driver protects sign and exponent unless
+``--soft-error-unhardened``); the report adds a soft-error line.
+``--prefix-cache`` links matched prompt prefixes (``--prefix-chunk``
+tokens a digest, ``--prefix-table-size`` CAM entries) to resident KV
+columns instead of writing them, and ``--shared-prefix N`` gives the
+synthetic prompts one common N-token head (numpy, seed 1234) for it to
+hit; the report adds the prefix ledger.
 
 ``--retention-scale`` (seconds of modelled dwell per decode step) turns
 on retention decay at ``--ambient-k`` kelvin; ``--scrub-policy`` runs
@@ -81,6 +93,20 @@ def main(argv=None):
                     help="base scrub interval in decode steps")
     ap.add_argument("--scrub-cols", type=int, default=0,
                     help="columns per scrub pass (0 = whole leaves)")
+    ap.add_argument("--soft-error-ber", type=float, default=0.0,
+                    help="post-write radiation upsets per stored bit")
+    ap.add_argument("--soft-error-unhardened", action="store_true",
+                    help="let upsets strike sign/exponent bits too")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="link matched prompt prefixes to resident KV "
+                         "columns instead of writing them")
+    ap.add_argument("--prefix-chunk", type=int, default=8,
+                    help="prompt tokens per prefix digest")
+    ap.add_argument("--prefix-table-size", type=int, default=256,
+                    help="prefix CAM entries")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="leading prompt tokens shared by every synthetic "
+                         "request")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -97,7 +123,15 @@ def main(argv=None):
                            extent_enabled=not args.no_extent,
                            backend=args.backend,
                            retention_scale=retention_scale,
-                           ambient_k=args.ambient_k)
+                           ambient_k=args.ambient_k,
+                           soft_error_ber=args.soft_error_ber,
+                           soft_error_hardened=not args.soft_error_unhardened,
+                           prefix_cache=args.prefix_cache,
+                           prefix_chunk=args.prefix_chunk,
+                           prefix_table_size=args.prefix_table_size)
+
+    soft = dict(soft_error_ber=args.soft_error_ber,
+                soft_error_hardened=not args.soft_error_unhardened)
 
     if args.monolithic:
         toks = np.random.default_rng(0).integers(
@@ -114,6 +148,12 @@ def main(argv=None):
                   f"(backend={eng.backend}), "
                   f"skip-rate {tot['write_skip_rate']:.3f}, "
                   f"BER {tot['ber_realized']:.2e}")
+            if args.soft_error_ber > 0:
+                hardened = not args.soft_error_unhardened
+                print(f"soft errors: {tot['soft_strikes']} strikes at "
+                      f"BER {args.soft_error_ber:.1e} "
+                      f"({'hardened' if hardened else 'unhardened'} "
+                      f"driver)")
         return
 
     if args.trace:
@@ -131,6 +171,15 @@ def main(argv=None):
             cfg, args.requests, device=device, prompt_len=args.prompt_len,
             new_tokens=args.new_tokens, arrival_every=args.arrival_every,
             app_ids=apps)
+        if args.shared_prefix > 0:
+            # one common system prompt over every prompt's head: the
+            # cross-request overlap the prefix cache exists to exploit
+            shared = torch.from_numpy(np.random.default_rng(1234).integers(
+                0, cfg.vocab_size, (1, args.shared_prefix))).to(device)
+            for r in reqs:
+                r.prompt["tokens"] = torch.cat(
+                    [shared, r.prompt["tokens"][:, args.shared_prefix:]],
+                    dim=1)
         print(f"workload: synthetic, {len(reqs)} events")
     for spec in args.quality:
         app, _, level = spec.partition("=")
@@ -143,7 +192,7 @@ def main(argv=None):
     report = ContinuousScheduler(eng, capacity=args.capacity,
                                  scrub_policy=scrub_policy).run(reqs)
     for line in render_report(report, backend=eng.backend,
-                              show_extent=not args.no_extent):
+                              show_extent=not args.no_extent, **soft):
         print(line)
 
 

@@ -13,11 +13,18 @@ Built once per cache structure, it captures
     only the ring column at ``pos % C`` per slot, and the counter hash
     runs over the flat lane index *of the gathered column tensor* — as the
     reference does — so the column is gathered, written and scattered
-    back (a fused in-place version is later work).
+    back (a fused in-place version is later work);
+  * the optional post-write soft-error hook (radiation upsets at
+    ``soft_error_ber``; the hardened driver protects sign/exponent
+    planes): leaf ``i`` strikes with ``fold_in(key, SOFT_ERROR_OFFSET +
+    i)`` over the tensor the backend just wrote (the gathered column in
+    a decode write), counted in ``WriteStats.soft_strikes``;
+  * column aliasing for the prefix cache (``alias_cols``): a slot's
+    leading linked ring columns keep their stored bits, so the write
+    skips them at zero cost; ``alias_saving`` prices what that saves.
 
 Effective level = max(static policy, floor); EXACT leaves bypass the
-driver. Address remapping, column aliasing and the soft-error hook are
-later slices.
+driver. Address remapping is a later slice.
 """
 from __future__ import annotations
 
@@ -31,10 +38,13 @@ import torch
 from repro_torch import rng
 from repro_torch import tree as T
 from repro_torch.core import write_driver
-from repro_torch.core.priority import (Priority, bitplane_priorities,
+from repro_torch.core.approx_store import soft_error_strikes
+from repro_torch.core.priority import (Priority, bitplane_priorities, bits_of,
                                        kv_cache_policy)
 from repro_torch.kernels.extent_write import ops as xops
-from repro_torch.memory.backends import Backend, LeafVectors, get_backend
+from repro_torch.memory.backends import (Backend, LeafVectors,
+                                         default_backend, get_backend)
+from repro_torch.memory.rng_streams import SOFT_ERROR_OFFSET
 from repro_torch.memory.stats import WriteStats
 
 
@@ -46,19 +56,27 @@ BATCH_AXIS = 1
 def leaf_vectors(dtype: torch.dtype, level: Priority, device: torch.device
                  ) -> LeafVectors:
     """Resolve one (element dtype, effective level) pair to device
-    operands, once per process and device."""
+    operands, once per process and device: the per-bit-plane vectors
+    (the level table indexed by the bit-plane policy) and, for 1-, 2- and
+    4-byte elements, the lane quadruple."""
+    level = Priority.coerce(level)
     table = write_driver.level_table()
-    codes = bitplane_priorities(dtype, Priority.coerce(level))
-    thr01, thr10, e01, e10 = xops.level_vectors(dtype,
-                                                Priority.coerce(level))
+    codes = bitplane_priorities(dtype, level)
 
     def dev(a):
         return torch.from_numpy(np.array(a)).to(device)
 
+    lanes = (None,) * 4
+    if dtype.itemsize in (1, 2, 4):
+        thr01, thr10, e01, e10 = xops.level_vectors(dtype, level)
+        lanes = (dev(thr01.view(np.int32)), dev(thr10.view(np.int32)),
+                 dev(e01), dev(e10))
     return LeafVectors(
-        thr01=dev(thr01.view(np.int32)), thr10=dev(thr10.view(np.int32)),
-        le01=dev(e01), le10=dev(e10),
-        lat_max=dev(np.float32(table["lat"][codes].max())))
+        wer01=dev(table["wer01"][codes]), wer10=dev(table["wer10"][codes]),
+        eb01=dev(table["e01"][codes]), eb10=dev(table["e10"][codes]),
+        lat=dev(table["lat"][codes]),
+        lat_max=dev(np.float32(table["lat"][codes].max())),
+        thr01=lanes[0], thr10=lanes[1], le01=lanes[2], le10=lanes[3])
 
 
 def _approximate(leaf, tag: Priority) -> bool:
@@ -74,14 +92,18 @@ class WritePlan:
     leaf_seq_axis: Tuple[Optional[int], ...]
     device: torch.device
     floor_vectors: Dict[Priority, Tuple[Optional[LeafVectors], ...]]
+    soft_error_ber: float = 0.0
+    soft_error_hardened: bool = True
 
     @classmethod
     def for_tree(cls, tree: Any, *, device, backend: str,
-                 axes: Any) -> "WritePlan":
+                 axes: Any, soft_error_ber: float = 0.0,
+                 soft_error_hardened: bool = True) -> "WritePlan":
         """Resolve ``kv_cache_policy`` over ``tree`` (leaves need only
         ``dtype``) for the registry backend ``backend``. ``axes`` is a
         same-structure tree of logical-axis tuples; leaves whose tuple
-        holds ``"kv_seq"`` get the column-scoped decode write."""
+        holds ``"kv_seq"`` get the column-scoped decode write.
+        ``soft_error_ber > 0`` turns the post-write upset hook on."""
         device = torch.device(device)
         flat = T.flatten(tree)
         levels = []
@@ -99,23 +121,89 @@ class WritePlan:
         return cls(backend=get_backend(backend),
                    paths=tuple(p for p, _ in flat),
                    leaf_levels=tuple(levels), leaf_seq_axis=seq_axis,
-                   device=device, floor_vectors=floor_vectors)
+                   device=device, floor_vectors=floor_vectors,
+                   soft_error_ber=soft_error_ber,
+                   soft_error_hardened=soft_error_hardened)
 
     def vectors_for(self, floor: Priority
                     ) -> Tuple[Optional[LeafVectors], ...]:
         """Per-leaf operands for one quality floor (LOW = static policy)."""
         return self.floor_vectors[Priority.coerce(floor)]
 
+    def alias_saving(self, tree: Any, cols: int) -> Tuple[float, int]:
+        """Host constants (energy_pj, bits) of driving ``cols`` leading
+        ring columns of ONE slot across the sequence-axis leaves, every
+        bit priced at the mean of the static 0->1/1->0 per-plane write
+        prices: the full-drive cost of the columns a prefix link skips.
+        The scheduler books both a link's saving and a copy-on-write's
+        charge through it, so the two cancel exactly. Host arithmetic
+        only (the level table), as the reference computes it."""
+        table = write_driver.level_table()
+        pj, bits = 0.0, 0
+        for (_, leaf), lvl, ax in zip(T.flatten(tree), self.leaf_levels,
+                                      self.leaf_seq_axis):
+            if lvl is None or ax is None:
+                continue
+            C = leaf.shape[ax]
+            B = leaf.shape[BATCH_AXIS]
+            elems = leaf.numel() // (C * B) * min(int(cols), C)
+            codes = bitplane_priorities(leaf.dtype, lvl)
+            eb = (table["e01"][codes] + table["e10"][codes]) / 2.0
+            pj += float(elems) * float(eb.sum())
+            bits += elems * bits_of(leaf.dtype)
+        return pj, bits
+
     def _flat(self, old_tree, new_tree):
         flat_old = T.flatten(old_tree)
         assert tuple(p for p, _ in flat_old) == self.paths
         return [o for _, o in flat_old], T.leaves(new_tree)
 
+    def _leaf_write(self, key: np.ndarray, i: int, old: torch.Tensor,
+                    new: torch.Tensor, lv: LeafVectors
+                    ) -> Tuple[torch.Tensor, WriteStats]:
+        """One leaf through the backend, then the optional soft-error
+        hook: the one place the per-leaf RNG schedule lives."""
+        stored, st = self.backend.leaf_write(rng.fold_in(key, i), old, new,
+                                             lv)
+        if self.soft_error_ber > 0.0:
+            stored, strikes = soft_error_strikes(
+                rng.fold_in(key, SOFT_ERROR_OFFSET + i), stored,
+                self.soft_error_ber, self.soft_error_hardened)
+            st = dataclasses.replace(st,
+                                     soft_strikes=st.soft_strikes + strikes)
+        return stored, st
+
+    def alias_keep(self, i: int, leaf: torch.Tensor,
+                    alias_cols: Optional[torch.Tensor]
+                    ) -> Optional[torch.Tensor]:
+        """Column-alias mask of leaf ``i``, broadcastable to it: True on
+        the leading ``alias_cols[slot]`` ring columns, which are *linked*
+        to columns resident elsewhere (``serve.prefix``). None when
+        aliasing is off or the leaf has no ring axis."""
+        ax = self.leaf_seq_axis[i]
+        if alias_cols is None or ax is None:
+            return None
+        ishape = [1] * leaf.dim()
+        ishape[BATCH_AXIS] = alias_cols.shape[0]
+        cshape = [1] * leaf.dim()
+        cshape[ax] = leaf.shape[ax]
+        col = torch.arange(leaf.shape[ax], device=leaf.device)
+        return col.reshape(cshape) < alias_cols.reshape(ishape)
+
     def write(self, key: np.ndarray, old_tree: Any, new_tree: Any,
-              vectors: Sequence) -> Tuple[Any, WriteStats]:
+              vectors: Sequence,
+              alias_cols: Optional[torch.Tensor] = None
+              ) -> Tuple[Any, WriteStats]:
         """Diff-write a full tree (or a row subset of the same structure)
         with the per-leaf operands ``vectors`` (``vectors_for``); returns
-        (stored_tree, WriteStats)."""
+        (stored_tree, WriteStats).
+
+        ``alias_cols`` is the prefix cache's optional (B,) int64 column
+        alias: slot ``b``'s leading ``alias_cols[b]`` ring columns keep
+        the stored (old) bits, so the write skips them — zero energy,
+        flips and WER there. Every other element stores what the
+        unaliased call stores (the RNG hashes flat element indices), and
+        an all-zero alias equals ``alias_cols=None`` bit for bit."""
         olds, news = self._flat(old_tree, new_tree)
         stored = []
         acc = WriteStats.zero(self.device)
@@ -123,19 +211,24 @@ class WritePlan:
             if lvl is None:
                 stored.append(n)
                 continue
-            s, st = self.backend.leaf_write(rng.fold_in(key, i), o, n,
-                                            vectors[i])
+            keep = self.alias_keep(i, o, alias_cols)
+            if keep is not None:
+                n = torch.where(keep, o, n)
+            s, st = self._leaf_write(key, i, o, n, vectors[i])
             stored.append(s)
             acc = acc + st
         return T.unflatten(list(self.paths), stored), acc
 
     def write_columns(self, key: np.ndarray, old_tree: Any, new_tree: Any,
-                      pos: torch.Tensor, vectors: Sequence
+                      pos: torch.Tensor, vectors: Sequence,
+                      alias_cols: Optional[torch.Tensor] = None
                       ) -> Tuple[Any, WriteStats]:
         """Column-scoped decode diff-write: sequence-axis leaves write only
         the ring column at ``pos % C`` per slot (``pos`` is the (B,)
         int64 position vector); the accounting equals a full diff because
-        everything outside the column is unchanged."""
+        everything outside the column is unchanged. With ``alias_cols``
+        a slot whose column lies in its linked prefix (``pos <
+        alias_cols``) keeps its stored bits."""
         olds, news = self._flat(old_tree, new_tree)
         stored = []
         acc = WriteStats.zero(self.device)
@@ -144,9 +237,8 @@ class WritePlan:
                 stored.append(n)
                 continue
             ax = self.leaf_seq_axis[i]
-            k_i = rng.fold_in(key, i)
             if ax is None:
-                s, st = self.backend.leaf_write(k_i, o, n, vectors[i])
+                s, st = self._leaf_write(key, i, o, n, vectors[i])
                 stored.append(s)
                 acc = acc + st
                 continue
@@ -157,9 +249,21 @@ class WritePlan:
             idx = (pos % C).reshape(ishape).expand(gshape)
             o_col = torch.gather(o, ax, idx)
             n_col = torch.gather(n, ax, idx)
-            s_col, st = self.backend.leaf_write(k_i, o_col, n_col,
-                                                vectors[i])
+            if alias_cols is not None:
+                keep = (pos < alias_cols).reshape(ishape)
+                n_col = torch.where(keep, o_col, n_col)
+            s_col, st = self._leaf_write(key, i, o_col, n_col, vectors[i])
             stored.append(n.scatter(ax, idx, s_col))
             acc = acc + st
         return T.unflatten(list(self.paths), stored), acc
 
+
+def write(key: np.ndarray, old: torch.Tensor, new: torch.Tensor, *,
+          level=Priority.LOW, backend: Optional[str] = None
+          ) -> Tuple[torch.Tensor, WriteStats]:
+    """Single-tensor EXTENT write through a registered backend (default:
+    the kernel on a CUDA device, the twin on the CPU) at ``level`` (a
+    Priority, its int or its name). Returns (stored, WriteStats)."""
+    lv = leaf_vectors(old.dtype, Priority.coerce(level), old.device)
+    be = get_backend(backend or default_backend(old.device))
+    return be.leaf_write(key, old, new, lv)

@@ -5,16 +5,17 @@ same names and values. Domains (who the parent key is):
 
   * ``step-write-key``    — the per-step write key the burst splits
                             (``k_write``): the write plan folds the flat
-                            leaf index ``i`` (offset 0), retention decay
-                            folds ``RETENTION_OFFSET + i`` and a scrub
+                            leaf index ``i`` (offset 0), its soft-error
+                            hook ``SOFT_ERROR_OFFSET + i``, retention
+                            decay ``RETENTION_OFFSET + i`` and a scrub
                             pass ``SCRUB_OFFSET + i`` off its pass key;
   * ``serve-decode-root`` — the scheduler's carried decode key: scrub
                             pass ``n`` folds
                             ``SCHEDULER_SCRUB_PASS_OFFSET + n`` off it.
 
 The counter hash the lane kernels, their twins and the decay sampler
-share is keyed on (seed, flat index, bit plane). The soft-error,
-checkpoint and workload streams belong to slices not ported yet.
+share is keyed on (seed, flat index, bit plane). The checkpoint and
+workload streams belong to slices not ported yet.
 """
 from __future__ import annotations
 
@@ -36,6 +37,8 @@ class Stream(NamedTuple):
 
 #: WritePlan folds the flat leaf index directly into the step write key.
 WRITE_LEAF_OFFSET = 0
+#: WritePlan's post-write soft-error hook (radiation upsets).
+SOFT_ERROR_OFFSET = 1_000_003
 #: LifetimePlan.advance per-leaf decay sub-streams.
 RETENTION_OFFSET = 2_000_003
 #: scrub_tree per-leaf corrective-re-write sub-streams.
@@ -49,6 +52,9 @@ INDEX_SPAN = 1_000_000
 STREAMS: Tuple[Stream, ...] = (
     Stream("write-leaf", WRITE_LEAF_OFFSET, "step-write-key",
            "WritePlan leaf writes: fold_in(k_write, i)", span=INDEX_SPAN),
+    Stream("soft-error", SOFT_ERROR_OFFSET, "step-write-key",
+           "WritePlan post-write upset hook: fold_in(k_write, off + i)",
+           span=INDEX_SPAN),
     Stream("retention-decay", RETENTION_OFFSET, "step-write-key",
            "LifetimePlan.advance decay sampler: fold_in(k_write, off + i)",
            span=INDEX_SPAN),

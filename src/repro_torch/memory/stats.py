@@ -23,7 +23,7 @@ class WriteStats:
     flips01: torch.Tensor       # i64: 0->1 writes (P->AP)
     flips10: torch.Tensor       # i64: 1->0 writes
     errors: torch.Tensor        # i64: failed flips
-    soft_strikes: torch.Tensor  # i64: post-write upsets (hook not ported)
+    soft_strikes: torch.Tensor  # i64: post-write soft-error upsets
     bits_total: torch.Tensor    # i64: addressed element bits
 
     @classmethod

@@ -313,3 +313,27 @@ class LifetimePlan:
                       m.index_fill(BATCH_AXIS, idx, 0)
                       for m in state.masks)
         return dataclasses.replace(state, masks=masks)
+
+    def reset_rows_linked(self, state: LifetimeState, idx: torch.Tensor,
+                          src: torch.Tensor, cols: torch.Tensor
+                          ) -> LifetimeState:
+        """Admission reset for prefix-linked slots: the rows ``idx``
+        restart from zero like ``reset_rows``, except each slot's leading
+        ``cols[b]`` ring columns, which were *linked* to slot ``src[b]``'s
+        stored bits and so inherit its decay record for those columns
+        (a later scrub corrects the linked copy as it corrects the
+        owner). All-zero ``cols`` equals ``reset_rows(state, idx)``."""
+        masks = []
+        for i, m in enumerate(state.masks):
+            if m is None:
+                masks.append(None)
+                continue
+            sel = m.index_select(BATCH_AXIS, src)
+            ax = self.plan.leaf_seq_axis[i]
+            if ax is None:
+                new = torch.zeros_like(sel)
+            else:
+                keep = self.plan.alias_keep(i, sel, cols)
+                new = torch.where(keep, sel, torch.zeros_like(sel))
+            masks.append(m.index_copy(BATCH_AXIS, idx, new))
+        return dataclasses.replace(state, masks=tuple(masks))

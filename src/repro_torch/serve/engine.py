@@ -26,6 +26,13 @@ runs one corrective pass between bursts. The decay streams fold off the
 step's write key, so the write and sampling schedule is the same with
 retention on or off, and a 300 K run equals a retention-off run.
 
+With ``soft_error_ber > 0`` every write of the plan is followed by the
+radiation-upset hook (the hardened driver shields sign and exponent);
+strikes land in ``WriteStats.soft_strikes``. A prefix-linked admission
+(``prefill`` with ``alias_cols``, after ``splice_rows`` grafted the link
+owners' resident columns into the old rows) runs the same split
+schedule and model prefill, and its write skips the linked columns.
+
 Lockstep contract (as in the reference): admitting a whole pool at once
 and decoding it reproduces ``generate`` on the same batch bit for bit.
 """
@@ -66,6 +73,16 @@ class ServeConfig:
     retention_scale: float = 0.0
     #: die ambient temperature (kelvin) of the retention model
     ambient_k: float = 300.0
+    #: post-write radiation upsets per stored bit (0 = off); the hardened
+    #: driver protects the sign/exponent planes
+    soft_error_ber: float = 0.0
+    soft_error_hardened: bool = True
+    #: content-addressable prefix cache (serve.prefix): admission links a
+    #: matched prompt prefix to resident KV columns instead of writing
+    #: them; prefix-off runs are bit-identical to an engine without it
+    prefix_cache: bool = False
+    prefix_chunk: int = 8
+    prefix_table_size: int = 256
 
 
 def _row_mask(active: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -101,7 +118,9 @@ class ServingEngine:
         cache_like = self.api.init_cache(1, serve_cfg.max_seq, "meta")
         self.plan = WritePlan.for_tree(
             cache_like, device=self.device, backend=self.backend,
-            axes=self.api.cache_axes())
+            axes=self.api.cache_axes(),
+            soft_error_ber=serve_cfg.soft_error_ber,
+            soft_error_hardened=serve_cfg.soft_error_hardened)
         # per-(leaf, floor, ambient) decay thresholds resolved once; an
         # ambient schedule swaps them between bursts
         self.life_plan = None
@@ -124,10 +143,13 @@ class ServingEngine:
         return self.api.prompt_len(batch)
 
     # ---------------------------------------------------------- fused steps
-    def prefill(self, params, batch, old_rows, key: np.ndarray, vectors):
+    def prefill(self, params, batch, old_rows, key: np.ndarray, vectors,
+                alias_cols: Optional[torch.Tensor] = None):
         """Fused prefill -> extent write -> first greedy token.
         ``old_rows=None`` diffs against zeros (a cold cache); otherwise
-        against the pool's current rows for the admitted slots."""
+        against the pool's current rows for the admitted slots.
+        ``alias_cols`` ((B,) int64, with ``old_rows``) keeps each slot's
+        leading linked columns as they are in ``old_rows``."""
         # the reference's three-way split; the third (sampling) key waits
         # for non-greedy sampling
         keys = rng.split(key, 3)
@@ -137,8 +159,23 @@ class ServingEngine:
         if self.scfg.extent_enabled:
             old = (old_rows if old_rows is not None
                    else T.tree_map(torch.zeros_like, cache))
-            cache, acc = self.plan.write(k_write, old, cache, vectors)
+            cache, acc = self.plan.write(k_write, old, cache, vectors,
+                                         alias_cols=alias_cols)
         return self._sample(logits), cache, key, acc
+
+    def splice_rows(self, old_rows, owner_rows, alias_cols: torch.Tensor):
+        """Graft the link owners' resident prefix columns into extracted
+        admission rows: per ring leaf, slot ``b``'s columns ``[0,
+        alias_cols[b])`` take ``owner_rows``'s bits, the rest keep
+        ``old_rows``'s. The result is the linked prefill's ``old``: its
+        linked columns are stored as they are (the owner's current bits,
+        realized write errors and decay included)."""
+        out = []
+        for i, (o, w) in enumerate(zip(T.leaves(old_rows),
+                                       T.leaves(owner_rows))):
+            keep = self.plan.alias_keep(i, o, alias_cols)
+            out.append(o if keep is None else torch.where(keep, w, o))
+        return T.unflatten(list(self.plan.paths), out)
 
     def burst(self, params, tok, cache, pos, key: np.ndarray, acc,
               slot_acc, active, vectors, life=None, rvec=None, *, n: int):

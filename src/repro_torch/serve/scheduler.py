@@ -17,7 +17,15 @@ optional ambient-temperature schedule), and after each burst a host-side
 scrub policy may run one corrective pass whose energy goes to the
 ``kv_scrub`` stream; the report gains the lifetime ledger.
 
-Prefix linking, wear, telemetry and sharding are later slices.
+With the prefix cache on (``ServeConfig.prefix_cache``) admission reads
+each prompt on the host once, matches its chunk digests against the CAM
+(``serve.prefix``), keeps the match owners out of allocation, makes room
+by copy-on-write detaching link-blocked free slots, splices the owners'
+resident columns into the old rows and writes with those columns
+aliased; linked slots inherit the owner's decay record, and the report
+gains the ``kv_prefix_cow`` stream and a ``prefix`` section.
+
+Wear, telemetry and sharding are later slices.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from repro_torch.core.energy_model import StepEnergyMeter
 from repro_torch.core.priority import Priority
 from repro_torch.memory import WriteStats, rng_streams
 from repro_torch.serve.engine import ServingEngine
+from repro_torch.serve.prefix import PrefixCache, PrefixConfig, PrefixMatch
 from repro_torch.serve.slots import SlotPool
 
 
@@ -123,6 +132,12 @@ class ContinuousScheduler:
         self.life = None  # LifetimeState, owned per run()
         self.pool = SlotPool(engine.api, capacity, engine.scfg.max_seq,
                              engine.device)
+        #: None = prefix cache off: every admission takes the plain path
+        self.prefix: Optional[PrefixCache] = None
+        if engine.scfg.prefix_cache:
+            self.prefix = PrefixCache(PrefixConfig(
+                chunk=engine.scfg.prefix_chunk,
+                table_size=engine.scfg.prefix_table_size))
         self.meter = StepEnergyMeter()
         self._tokens: Dict[int, List[Tuple[torch.Tensor, int, int]]] = {}
         self._remaining: Dict[int, int] = {}
@@ -146,6 +161,64 @@ class ContinuousScheduler:
                 floor = max(floor, self._level[r.rid])
         return Priority(floor)
 
+    # ---------------------------------------------------------- prefix cache
+    def _resolve_prefix(self, group: Sequence[Request]
+                        ) -> Tuple[List[Optional[PrefixMatch]], List[Any]]:
+        """Match every member's prompt prefix against the CAM. Returns
+        (matches, signature chains), aligned with ``group``. A match names
+        a slot whose resident leading columns hold what this request's
+        prefill would store there (same prefix, causal attention)."""
+        matches: List[Optional[PrefixMatch]] = []
+        sigs: List[Any] = []
+        for r in group:
+            # the one host read of the prompt, at admission
+            host_prompt = {k: v.cpu().numpy() for k, v in r.prompt.items()}
+            s = self.prefix.signatures(host_prompt)
+            sigs.append(s)
+            matches.append(self.prefix.lookup(
+                s, valid=lambda slot, gen:
+                    self.pool.generation[slot] == gen,
+                max_cols=self.eng.prompt_len(r.prompt)))
+        return matches, sigs
+
+    def _cow_owner(self, owner: int) -> None:
+        """Copy-on-write detach of every linker of ``owner``: each
+        linker's columns are now really driven, booked at the price the
+        link was credited (``WritePlan.alias_saving``)."""
+        for _, cols in self.pool.cow_detach(owner):
+            pj, bits = self.eng.plan.alias_saving(self.pool.cache, cols)
+            self._acc_cow = self._acc_cow + WriteStats.for_bits(
+                bits, self.eng.device, energy_pj=torch.tensor(
+                    pj, dtype=torch.float32, device=self.eng.device))
+            self._cow_events += 1
+
+    def _make_room(self, n: int, matches: List[Optional[PrefixMatch]],
+                   exclude: set) -> None:
+        """Guarantee ``n`` allocatable slots: first CoW link-blocked free
+        slots (lowest id first), then drop matches whose owner exclusion
+        starves capacity."""
+        while self.pool.allocatable(exclude) < n:
+            blocked = [i for i in self.pool.blocked_free()
+                       if i not in exclude]
+            if blocked:
+                self._cow_owner(blocked[0])
+                continue
+            dropped = False
+            for j, m in enumerate(matches):
+                if m is None:
+                    continue
+                matches[j] = None
+                if (m.slot in exclude and not any(
+                        mm is not None and mm.slot == m.slot
+                        for mm in matches)):
+                    exclude.discard(m.slot)
+                    if (self.pool.col_refs[m.slot] > 0
+                            and self.pool.slot_req[m.slot] is None):
+                        self._cow_owner(m.slot)  # free but still blocked
+                dropped = True
+                break
+            assert dropped, (n, sorted(exclude))
+
     def _admit(self, pending, clock: int, key) -> Tuple[Any, int]:
         """Admit every arrived request that fits, one fused prefill per
         prompt-shape group. Returns (key, immediate completions)."""
@@ -164,21 +237,65 @@ class ContinuousScheduler:
         for group in groups.values():
             for r in group:
                 self._level[r.rid] = self._resolve_quality(r)
-            ids = self.pool.alloc(len(group))
+            # prefix resolution: match, keep the owners out of allocation
+            # (linking to a slot about to be overwritten defeats itself),
+            # then CoW or drop matches until the group fits
+            matches: List[Optional[PrefixMatch]] = [None] * len(group)
+            sigs: List[Any] = []
+            exclude: set = set()
+            if self.prefix is not None:
+                matches, sigs = self._resolve_prefix(group)
+                exclude = {m.slot for m in matches if m is not None}
+                self._make_room(len(group), matches, exclude)
+            ids = self.pool.alloc(len(group), exclude=sorted(exclude))
             vectors = self.eng.vectors_for_floor(
                 max(self._floor(), max(self._level[r.rid] for r in group)))
             batch = _stack_prompts(group)
             old_rows = self.pool.extract_rows(ids)
             pos0 = [self.eng.prompt_len(r.prompt) for r in group]
-            tok, rows, key, acc = self.eng.prefill(
-                self.eng.params, batch, old_rows, key, vectors)
+            linked = any(m is not None for m in matches)
+            if linked:
+                # splice the owners' resident prefix columns into the old
+                # rows, then write with them aliased: zero energy and
+                # zero WER exposure there; same split schedule
+                owner_ids = [m.slot if m is not None else ids[j]
+                             for j, m in enumerate(matches)]
+                alias = self.pool.index([m.cols if m is not None else 0
+                                         for m in matches])
+                old_rows = self.eng.splice_rows(
+                    old_rows, self.pool.extract_rows(owner_ids), alias)
+                tok, rows, key, acc = self.eng.prefill(
+                    self.eng.params, batch, old_rows, key, vectors,
+                    alias_cols=alias)
+            else:
+                tok, rows, key, acc = self.eng.prefill(
+                    self.eng.params, batch, old_rows, key, vectors)
             self._acc_prefill = self.pool.admit(
                 ids, group, rows, tok, pos0, acc, self._acc_prefill)
             if self.life is not None:
                 # the admitted rows were just prefill-written: their
-                # decay record restarts from zero
-                self.life = self.eng.life_plan.reset_rows(
-                    self.life, self.pool.index(ids))
+                # decay record restarts from zero, except linked columns,
+                # which carry the owner's stored bits and decay record
+                idx = self.pool.index(ids)
+                self.life = (
+                    self.eng.life_plan.reset_rows_linked(
+                        self.life, idx, self.pool.index(owner_ids), alias)
+                    if linked else
+                    self.eng.life_plan.reset_rows(self.life, idx))
+            if self.prefix is not None:
+                for j, r in enumerate(group):
+                    m = matches[j]
+                    if m is not None:
+                        self.pool.link(ids[j], m.slot, m.cols)
+                        pj, bits = self.eng.plan.alias_saving(
+                            self.pool.cache, m.cols)
+                        self._saved_pj += pj
+                        self._saved_bits += bits
+                        self._linked_admissions += 1
+                        self._linked_cols += m.cols
+                    self.prefix.insert(
+                        sigs[j], ids[j], self.pool.generation[ids[j]],
+                        col_offset=pos0[j] - r.prompt["tokens"].shape[1])
             for j, r in enumerate(group):
                 self._tokens[r.rid] = [(tok, j, 1)]
                 self._remaining[r.rid] = r.new_tokens - 1
@@ -298,6 +415,12 @@ class ContinuousScheduler:
         self._acc_prefill = WriteStats.zero(eng.device)
         self._acc_decode = WriteStats.zero(eng.device)
         self._acc_scrub = WriteStats.zero(eng.device)
+        self._acc_cow = WriteStats.zero(eng.device)
+        self._saved_pj = 0.0
+        self._saved_bits = 0
+        self._linked_admissions = self._linked_cols = self._cow_events = 0
+        if self.prefix is not None:
+            self.prefix.reset_stats()  # as the extent table's
         self._scrub_passes = 0
         self._scrub_cursor = 0
         if self.scrub_policy is not None:
@@ -357,6 +480,9 @@ class ContinuousScheduler:
         if self.life is not None:
             scrub_host = self._acc_scrub.host_dict()
             self.meter.add_stream("kv_scrub", scrub_host)
+        if self.prefix is not None:
+            cow_host = self._acc_cow.host_dict()
+            self.meter.add_stream("kv_prefix_cow", cow_host)
         summary = self.meter.summary()
         summary.update({
             "requests": self._reports,
@@ -366,6 +492,25 @@ class ContinuousScheduler:
             "pool": pool.stats(),
             "extent_table": eng.controller.table.stats(),
         })
+        if self.prefix is not None:
+            # the prefix ledger: what linking earned, net of what the
+            # mechanism cost (CAM searches and copy-on-write writes)
+            pstats = self.prefix.stats()
+            cow_pj = cow_host["energy_pj"]
+            summary["prefix"] = {
+                "enabled": True,
+                "chunk": eng.scfg.prefix_chunk,
+                "table_size": eng.scfg.prefix_table_size,
+                **pstats,
+                "linked_admissions": self._linked_admissions,
+                "linked_cols": self._linked_cols,
+                "write_energy_saved_pj": self._saved_pj,
+                "saved_bits": self._saved_bits,
+                "cow_events": self._cow_events,
+                "cow_energy_pj": cow_pj,
+                "net_energy_saved_pj": (self._saved_pj - cow_pj
+                                        - pstats["cam_energy_pj"]),
+            }
         if self.life is not None:
             # the lifetime ledger: write energy plus the scrub energy spent
             # defending it, and the decay that slipped through

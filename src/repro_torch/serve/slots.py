@@ -1,17 +1,26 @@
 """Slot-pool KV cache: a fixed-capacity pool of per-request cache rows.
 
-The counterpart of ``repro.serve.slots.SlotPool`` without prefix links,
-copy-on-write or wear scores. The pool owns one device cache tree whose
-slot (batch) axis is the capacity, plus the per-slot decode state the
-burst carries (token, position, attribution accumulators). The free list
-hands out the lowest ids, so a group admitted together occupies a
-contiguous prefix — admitting the whole pool reproduces the monolithic
-batch layout exactly (the lockstep bit-parity contract).
+The counterpart of ``repro.serve.slots.SlotPool`` without wear scores.
+The pool owns one device cache tree whose slot (batch) axis is the
+capacity, plus the per-slot decode state the burst carries (token,
+position, attribution accumulators). The free list hands out the lowest
+ids, so a group admitted together occupies a contiguous prefix —
+admitting the whole pool reproduces the monolithic batch layout exactly
+(the lockstep bit-parity contract).
+
+Prefix links (``serve.prefix``) add refcounted column ownership:
+``links[linker] = (owner, cols)`` records that a slot's leading KV
+columns mirror another slot's resident ones, ``col_refs[owner]`` counts
+its linkers, and a free slot with inbound links is *blocked* from
+allocation until they drop or are copy-on-write detached.
+``generation[s]`` rises at every admission, so prefix-cache entries
+naming overwritten columns fail their generation check. All of it is
+host bookkeeping.
 """
 from __future__ import annotations
 
 import heapq
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,6 +45,9 @@ class SlotPool:
         self.slot_req: List[Optional[Any]] = [None] * capacity
         self._free: List[int] = list(range(capacity))
         heapq.heapify(self._free)
+        self.col_refs: List[int] = [0] * capacity
+        self.links: Dict[int, Tuple[int, int]] = {}
+        self.generation: List[int] = [0] * capacity
         self.admissions = 0
         #: admit() calls: one fused prefill (and one write per approximate
         #: leaf) each
@@ -52,17 +64,72 @@ class SlotPool:
     def busy(self) -> bool:
         return len(self._free) < self.capacity
 
-    def alloc(self, n: int) -> List[int]:
-        """Claim the ``n`` lowest free slot ids."""
-        assert n <= len(self._free), (n, len(self._free))
-        return [heapq.heappop(self._free) for _ in range(n)]
+    def blocked_free(self) -> List[int]:
+        """Free slots pinned by inbound prefix links (ascending)."""
+        return sorted(i for i in self._free if self.col_refs[i] > 0)
+
+    def allocatable(self, exclude: Sequence[int] = ()) -> int:
+        """Free slots claimable now: not link-blocked, not in
+        ``exclude`` (the match owners of an admission in flight)."""
+        avoid = set(exclude)
+        return sum(1 for i in self._free
+                   if self.col_refs[i] == 0 and i not in avoid)
+
+    def alloc(self, n: int, exclude: Sequence[int] = ()) -> List[int]:
+        """Claim the ``n`` lowest free slot ids that are neither
+        link-blocked nor in ``exclude``. With no links and no exclusions
+        (every prefix-off run) this is the plain free-list order."""
+        avoid = {i for i in self._free if self.col_refs[i] > 0}
+        avoid.update(exclude)
+        if not avoid:
+            assert n <= len(self._free), (n, len(self._free))
+            return [heapq.heappop(self._free) for _ in range(n)]
+        cand = sorted(i for i in self._free if i not in avoid)
+        assert n <= len(cand), (n, len(cand), sorted(avoid))
+        ids = cand[:n]
+        taken = set(ids)
+        self._free = [i for i in self._free if i not in taken]
+        heapq.heapify(self._free)
+        return ids
+
+    def link(self, linker: int, owner: int, cols: int) -> None:
+        """Record that ``linker``'s leading ``cols`` KV columns mirror
+        ``owner``'s; the owner's refcount blocks its eviction."""
+        assert linker not in self.links, linker
+        if linker == owner:
+            return  # re-admission into the owner slot shares nothing new
+        self.links[linker] = (owner, cols)
+        self.col_refs[owner] += 1
+
+    def unlink(self, linker: int) -> None:
+        """Drop ``linker``'s outbound link (completion or CoW)."""
+        owner, _ = self.links.pop(linker)
+        assert self.col_refs[owner] > 0, owner
+        self.col_refs[owner] -= 1
+
+    def cow_detach(self, owner: int) -> List[Tuple[int, int]]:
+        """Copy-on-write: detach every linker of ``owner`` so its columns
+        may be overwritten. The linkers' rows already hold the shared
+        bits; the caller books one full write of each returned
+        ``(linker, cols)`` (``WritePlan.alias_saving`` pricing)."""
+        out = [(lk, cols) for lk, (ow, cols) in self.links.items()
+               if ow == owner]
+        for lk, _ in out:
+            self.unlink(lk)
+        return sorted(out)
 
     def release(self, slot_ids: Sequence[int]) -> None:
         """Return slots to the free list. Their cache rows keep the stale
-        bits on purpose: the next admission diffs against them."""
+        bits on purpose: the next admission diffs against them, and the
+        prefix cache may link to their resident columns until an
+        admission overwrites them. A completing slot drops its own
+        outbound link; inbound links survive (they pin columns, not
+        occupancy)."""
         for i in slot_ids:
             assert self.slot_req[i] is not None, i
             self.slot_req[i] = None
+            if i in self.links:
+                self.unlink(i)
             heapq.heappush(self._free, i)
         self.completions += len(slot_ids)
 
@@ -103,7 +170,11 @@ class SlotPool:
                          for k, v in self.slot_acc.items()}
         for i, r in zip(slot_ids, requests):
             assert self.slot_req[i] is None, i
+            assert self.col_refs[i] == 0, (i, self.col_refs[i])
             self.slot_req[i] = r
+            # the slot's previous resident bits are gone: prefix-cache
+            # entries naming them fail their generation check
+            self.generation[i] += 1
         self.admissions += len(slot_ids)
         self.admission_groups += 1
         self.peak_occupancy = max(self.peak_occupancy,

@@ -19,6 +19,8 @@ Two ways to hold it:
   held to three Poisson standard deviations of the reference's count
   (largest measured: 1.2, the last request; the HIGH-quality request
   fails 16 of 62k flips)."""
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -87,14 +89,14 @@ def setup():
     return jp, ref, trace
 
 
-def _port_report(api, params, trace):
+def _serve_port(api, params, path, capacity=2, **kw):
     cfg = get_config(ARCH).reduced()
-    scfg = ServeConfig(max_seq=trace.max_seq(),
-                       max_new_tokens=trace.max_new_tokens(),
-                       backend="lanes_ref")
-    eng = ServingEngine(cfg, scfg, params, device="cpu", api=api)
-    return ContinuousScheduler(eng, capacity=2).run(
-        TraceSource(load_trace(FIXTURE), cfg, CPU))
+    trace = load_trace(path)
+    eng = ServingEngine(cfg, ServeConfig(
+        max_seq=trace.max_seq(), max_new_tokens=trace.max_new_tokens(),
+        **kw), params, device="cpu", api=api)
+    return ContinuousScheduler(eng, capacity=capacity).run(
+        TraceSource(trace, cfg, CPU))
 
 
 def _check_shape_of_run(rep, ref):
@@ -115,9 +117,9 @@ def _check_shape_of_run(rep, ref):
 
 
 def test_scheduler_with_reference_numerics_is_exact(setup):
-    jp, ref, trace = setup
+    jp, ref, _ = setup
     cfg = get_config(ARCH).reduced()
-    rep = _port_report(JaxModel(cfg), jp, trace)
+    rep = _serve_port(JaxModel(cfg), jp, FIXTURE, backend="lanes_ref")
     _check_shape_of_run(rep, ref)
     for rid, r in ref["requests"].items():
         p = rep["requests"][rid]
@@ -137,9 +139,9 @@ def test_scheduler_with_reference_numerics_is_exact(setup):
 
 
 def test_scheduler_with_port_model(setup):
-    jp, ref, trace = setup
+    jp, ref, _ = setup
     tp = params_from_jax(jax.tree.map(np.asarray, jp))
-    rep = _port_report(None, tp, trace)
+    rep = _serve_port(None, tp, FIXTURE, backend="lanes_ref")
     _check_shape_of_run(rep, ref)
     for rid, r in ref["requests"].items():
         p = rep["requests"][rid]
@@ -222,3 +224,135 @@ def test_steady_burst_repeats_its_steps():
     assert tuple(a[-1].shape) == (3, 2)
     torch.testing.assert_close(a[-1], b[-1], rtol=0, atol=0)
     assert a[4].host_dict() == b[4].host_dict()
+
+
+# ---------------------------------------------------------------------------
+# the oracle backend, soft errors and the prefix cache, through the adapter
+# ---------------------------------------------------------------------------
+
+def _serve_both(jp, path, capacity=2, **kw):
+    """The reference's report and the port's (reference numerics through
+    the adapter) for the trace at ``path`` with ServeConfig ``kw``."""
+    jcfg = jget(ARCH).reduced()
+    jtrace = jload_trace(path)
+    jscfg = JServeConfig(max_seq=jtrace.max_seq(),
+                         max_new_tokens=jtrace.max_new_tokens(), **kw)
+    ref = JSched(JEngine(jcfg, jscfg, params=jp), capacity=capacity).run(
+        JTraceSource(jtrace, jcfg))
+    return ref, _serve_port(JaxModel(get_config(ARCH).reduced()), jp, path,
+                            capacity, **kw)
+
+
+def _check_exact(rep, ref, energy_rtol):
+    """Tokens, flips, errors and strikes exact; energies to
+    ``energy_rtol``."""
+    assert sorted(rep["requests"]) == sorted(ref["requests"])
+    for rid, r in ref["requests"].items():
+        p = rep["requests"][rid]
+        for k in ("tokens", "slot", "flips", "errors"):
+            assert p[k] == r[k], (rid, k)
+        np.testing.assert_allclose(p["energy_pj"], r["energy_pj"],
+                                   rtol=energy_rtol)
+    assert sorted(rep["streams"]) == sorted(ref["streams"])
+    for s, r in ref["streams"].items():
+        for k in ("bits_written", "bits_total", "bit_errors",
+                  "soft_strikes"):
+            assert rep["streams"][s][k] == r[k], (s, k)
+        np.testing.assert_allclose(rep["streams"][s]["energy_pj"],
+                                   r["energy_pj"], rtol=energy_rtol)
+
+
+def test_oracle_backend_with_reference_numerics_is_exact(setup):
+    """backend="oracle" on the fixture: the eager write draws jax.random's
+    words, so tokens, flips and errors are exact. Energy: the reference
+    adds each write's elements x bits terms in float32, the port rounds
+    the float64 per-plane sum once (held exact against numpy in
+    test_torch_approx_store.py); at this trace's writes the reference's
+    sums stray up to 1.84e-5 relative (measured, request 3), so energies
+    are held at 5e-5."""
+    jp, _, _ = setup
+    ref, rep = _serve_both(jp, FIXTURE, backend="oracle")
+    _check_exact(rep, ref, 5e-5)
+    assert rep["total"]["bit_errors"] > 0
+
+
+@pytest.mark.parametrize("hardened", [True, False])
+def test_soft_errors_with_reference_numerics_are_exact(setup, hardened):
+    """soft_error_ber=1e-3 on the fixture: stored bits (so tokens, flips
+    and errors of later writes) and strikes exact."""
+    jp, _, _ = setup
+    kw = dict(backend="lanes_ref", soft_error_ber=1e-3,
+              soft_error_hardened=hardened)
+    ref, rep = _serve_both(jp, FIXTURE, **kw)
+    _check_exact(rep, ref, 1e-5)
+    assert rep["total"]["soft_strikes"] == ref["total"]["soft_strikes"] > 0
+
+
+def _shared_prefix_trace(path, n=6, shared=8, prompt_len=12):
+    """``n`` 12-token prompts whose first 8 tokens are one shared head,
+    arriving 2 steps apart, 4 new tokens each."""
+    r = np.random.default_rng(5)
+    head = r.integers(0, 256, shared).tolist()
+    lines = [{"family": "dense", "format": "repro.workload.trace",
+              "meta": {"preset": "shared_prefix"}, "version": 1,
+              "vocab_size": 256}]
+    for i in range(n):
+        lines.append({"app_id": "chat" if i % 2 else "batch",
+                      "arrival": 2 * i, "new_tokens": 4, "quality": "low",
+                      "rid": i, "session": i, "tokens": head + r.integers(
+                          0, 256, prompt_len - shared).tolist()})
+    path.write_text("".join(json.dumps(d) + "\n" for d in lines))
+    return str(path)
+
+
+def test_prefix_cache_with_reference_numerics_is_exact(setup, tmp_path):
+    """Prefix cache on (chunk 4, capacity 2) over a shared-head trace:
+    links and copy-on-writes happen, and tokens, ledger counts, links,
+    CoW events and saved bits equal the reference's."""
+    jp, _, _ = setup
+    path = _shared_prefix_trace(tmp_path / "shared.jsonl")
+    kw = dict(backend="lanes_ref", prefix_cache=True, prefix_chunk=4)
+    ref, rep = _serve_both(jp, path, **kw)
+    _check_exact(rep, ref, 1e-5)
+    p, q = rep["prefix"], ref["prefix"]
+    assert p["linked_admissions"] >= 1 and p["cow_events"] >= 1
+    for k in ("lookups", "hits", "misses", "evictions", "insertions",
+              "stale_drops", "occupancy", "linked_admissions",
+              "linked_cols", "saved_bits", "cow_events", "chunk",
+              "table_size"):
+        assert p[k] == q[k], k
+    assert p["cam_energy_pj"] == q["cam_energy_pj"]
+    # host sums of the level table's prices: to 1e-6, as the reference
+    # may hold the table whose energies differ in the last bit
+    for k in ("write_energy_saved_pj", "cow_energy_pj",
+              "net_energy_saved_pj"):
+        np.testing.assert_allclose(p[k], q[k], rtol=1e-6)
+
+
+def test_prefix_cache_without_shared_prompts_changes_nothing(setup):
+    """Cache on over the fixture (no shared heads): bit for bit the run
+    with the cache off."""
+    jp, _, _ = setup
+    tp = params_from_jax(jax.tree.map(np.asarray, jp))
+    off = _serve_port(None, tp, FIXTURE)
+    on = _serve_port(None, tp, FIXTURE, prefix_cache=True, prefix_chunk=4)
+    assert on["prefix"]["linked_admissions"] == 0
+    assert on["requests"] == off["requests"]
+    for s in ("kv_prefill", "kv_decode"):
+        assert on["streams"][s] == off["streams"][s], s
+    assert on["streams"]["kv_prefix_cow"]["energy_pj"] == 0.0
+
+
+def test_launcher_prefix_soft_errors_and_oracle_on_cpu(capsys):
+    """The launcher's new flags on the CPU: the prefix and soft-error
+    lines print."""
+    from repro_torch.launch import serve
+    serve.main(["--reduced", "--device", "cpu", "--prefix-cache",
+                "--shared-prefix", "8", "--soft-error-ber", "1e-4",
+                "--backend", "oracle", "--requests", "4", "--capacity",
+                "2", "--prompt-len", "12", "--new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "(backend=oracle)" in out
+    assert "soft errors: " in out and "(hardened driver)" in out
+    assert "prefix cache (chunk 8, table 256): hits=3" in out
+    assert "3 linked admissions (24 cols)" in out
