@@ -37,6 +37,10 @@ each printed as one JSON line:
                     over column windows. Tokens, flips, errors and the
                     lifetime counters identical, energies rtol 1e-5; a
                     300 K run with retention on equals one with it off;
+                    then wear leveling (groups of 4 columns, rotating)
+                    with an endurance budget of 6, retention and windowed
+                    scrubbing through the rotation: the same reports and
+                    the same row-group wear through both;
   6. full         — qwen2.5-3b at full published width (bf16, random
                     weights from a seed): first the ms per decode step at
                     batch 4 (which also warms the card up), then the main
@@ -130,12 +134,30 @@ each printed as one JSON line:
  16. soft_errors  — the 8 requests at soft-error BER 1e-6, hardened and
                     unhardened: strikes > 0 and within 6 sigma of
                     P(strike) x the bits the hook covered; the hook's
-                    ms per admission leaf.
+                    ms per admission leaf;
+ 17. wear         — the 8 requests with the physical addressing layer on
+                    (row groups of 8 ring columns, a wear checkpoint
+                    every 2 steps), three times: (a) never rotating,
+                    equal to ``full`` in tokens, flips, errors, stream
+                    energies and extent_write launches; (b) rotating by
+                    a group when the hottest gained 8: rotations, remap
+                    energy in the lifetime ledger, and (a)'s wear plus
+                    the migrations'; (c) (b) with an endurance budget of
+                    24, retention at 350 K and 32-column scrub windows
+                    every 8 steps through the rotation: worn groups,
+                    stuck-at bits lost and counted in kv_decode's errors.
+                    Each with its tokens/s, decode ms per step and the
+                    wear checkpoints' ms; then the windowed scrub on
+                    (c)'s end-of-run state: the pass (CUDA events) and
+                    its kernel (torch.profiler) against the byte bound.
 
 They run in the order build, kernel, scrub_kernel,
 local_attention_kernel, kv_quant_kernel, rng_device, reduced,
-reduced_hybrid, full, retention, oracle, prefix, soft_errors, hybrid;
-then nvidia-smi's line again and the kernels line.
+reduced_hybrid, full, retention, oracle, prefix, soft_errors, wear,
+hybrid; then nvidia-smi's line again and the kernels line, where the
+extent_write and scrub entries add their launches on each path
+(``launches_by_path``) and scrub's the windowed pass
+(``at.window_through_rotation``).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
 the script exits non-zero and prints no result; it also refuses to run
@@ -486,11 +508,13 @@ def phase_kernel(device):
     return worst_abs, worst_rel
 
 
-def serve_trace(cfg, params, backend, device, scrub_cols=None, **kw):
+def serve_trace(cfg, params, backend, device, scrub_cols=None, wear=None,
+                **kw):
     """The fixture trace at capacity 2. ``kw`` goes to ServeConfig;
     ``scrub_cols`` (0 = whole leaves) adds periodic scrubbing every 2
-    steps."""
-    from repro_torch.reliability import make_scrub_policy
+    steps; ``wear`` (make_wear_policy's keywords) a rotate wear policy.
+    Returns (report, scheduler)."""
+    from repro_torch.reliability import make_scrub_policy, make_wear_policy
     from repro_torch.serve import (ContinuousScheduler, ServeConfig,
                                    ServingEngine)
     from repro_torch.workload import TraceSource, load_trace
@@ -500,8 +524,11 @@ def serve_trace(cfg, params, backend, device, scrub_cols=None, **kw):
         backend=backend, **kw), params, device=device)
     policy = (None if scrub_cols is None else
               make_scrub_policy("periodic", 2, scrub_cols))
-    return ContinuousScheduler(eng, capacity=2, scrub_policy=policy).run(
-        TraceSource(trace, cfg, device))
+    sch = ContinuousScheduler(
+        eng, capacity=2, scrub_policy=policy,
+        wear_policy=None if wear is None else make_wear_policy("rotate",
+                                                               **wear))
+    return sch.run(TraceSource(trace, cfg, device)), sch
 
 
 def same_serve(rep_k, rep_r, what):
@@ -544,8 +571,8 @@ def phase_reduced(device):
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("qwen2.5-3b").reduced()
     params = get_model(cfg).init(0, device)
-    rep_k = serve_trace(cfg, params, "cuda", device)
-    rep_r = serve_trace(cfg, params, "lanes_ref", device)
+    rep_k, _ = serve_trace(cfg, params, "cuda", device)
+    rep_r, _ = serve_trace(cfg, params, "lanes_ref", device)
     same_serve(rep_k, rep_r, "reduced serve")
     tk = rep_k["total"]
     emit({"phase": "reduced", "tf32": False, "requests": len(rep_k[
@@ -560,11 +587,11 @@ def phase_reduced(device):
     for cols in (0, max_seq // 4):
         ret = dict(retention_scale=1000.0, ambient_k=400.0)
         n0 = SK.scrub_cuda.launches
-        rep_k = serve_trace(cfg, params, "cuda", device, scrub_cols=cols,
-                            **ret)
+        rep_k, _ = serve_trace(cfg, params, "cuda", device,
+                               scrub_cols=cols, **ret)
         launched = SK.scrub_cuda.launches - n0
-        rep_r = serve_trace(cfg, params, "lanes_ref", device,
-                            scrub_cols=cols, **ret)
+        rep_r, _ = serve_trace(cfg, params, "lanes_ref", device,
+                               scrub_cols=cols, **ret)
         lt = rep_k["lifetime"]
         mode = f"cols={cols}" if cols else "whole leaves"
         same_serve(rep_k, rep_r, f"reduced serve, 400 K scrub {mode}")
@@ -579,9 +606,9 @@ def phase_reduced(device):
                   "lifetime_energy_pj")},
               "lanes_ref_scrub_energy_pj":
                   rep_r["lifetime"]["scrub_energy_pj"], "ok": True})
-    off = serve_trace(cfg, params, "cuda", device)
-    on = serve_trace(cfg, params, "cuda", device, scrub_cols=0,
-                     retention_scale=1000.0, ambient_k=300.0)
+    off, _ = serve_trace(cfg, params, "cuda", device)
+    on, _ = serve_trace(cfg, params, "cuda", device, scrub_cols=0,
+                        retention_scale=1000.0, ambient_k=300.0)
     if (on["requests"] != off["requests"]
             or any(on["streams"][s] != off["streams"][s]
                    for s in ("kv_prefill", "kv_decode"))
@@ -590,6 +617,28 @@ def phase_reduced(device):
                              "retention off")
     emit({"phase": "reduced", "retention": "300 K equals off",
           "scrub_passes": on["lifetime"]["scrub_passes"], "ok": True})
+    # wear leveling with an endurance budget, retention and windowed
+    # scrubbing through the rotation: the kernels and the twins serve
+    # the same report and wear the same rows
+    wear_kw = dict(wear_policy="rotate", remap_group_cols=4,
+                   endurance_budget=REDUCED_WEAR_BUDGET,
+                   retention_scale=1000.0, ambient_k=400.0)
+    rot = dict(check_interval=2, rotate_step=4, hot_row_wear=2)
+    (rep_k, sch_k), (rep_r, sch_r) = (
+        serve_trace(cfg, params, be, device, scrub_cols=max_seq // 4,
+                    wear=rot, **wear_kw) for be in ("cuda", "lanes_ref"))
+    same_serve(rep_k, rep_r, "reduced serve, wear")
+    rw_k, rw_r = (s.life.row_wear().tolist() for s in (sch_k, sch_r))
+    w = rep_k["wear"]
+    if (rw_k != rw_r or w != rep_r["wear"] or not w["rotations"]
+            or not w["worn_groups"]
+            or any(rep_k["streams"][s][f] != rep_r["streams"][s][f]
+                   for s in rep_r["streams"] for f in (
+                       "bits_written", "bit_errors", "bits_total"))):
+        raise AssertionError(f"reduced wear run: cuda {w} {rw_k}, "
+                             f"lanes_ref {rep_r['wear']} {rw_r}")
+    emit({"phase": "reduced", "wear": "rotate + budget + windowed scrub",
+          **w, "row_wear_identical": True, "ok": True})
 
 
 #: the main path's traffic: 8 requests of 256-token prompts, 32 new
@@ -599,12 +648,15 @@ PROMPT_LEN, NEW_TOKENS, CAPACITY, N_REQ = 256, 32, 4, 8
 PROMPT_LEN_HYBRID = 3072
 
 
-def serve_full(eng, prompt_len, scrub_policy=None, shared=0):
+def serve_full(eng, prompt_len, scrub_policy=None, shared=0,
+               wear_policy=None, lost_bits=None):
     """Drive a path once at full width: the 8 requests through the
     continuous scheduler, every burst under
     ``set_sync_debug_mode("error")``; checks the tokens and the ledger.
     ``shared`` > 0 makes the first ``shared`` tokens of every prompt one
-    common system prompt (numpy, seed 1234). The caller sets the launch
+    common system prompt (numpy, seed 1234). ``lost_bits`` (a callable
+    run after the serve) counts the errors stuck-at rows booked, which
+    the BER check leaves out: it holds the driver. The caller sets the launch
     counts to 0 just before and reads them just after. Returns (report,
     scheduler, wall seconds)."""
     import numpy as np
@@ -623,7 +675,8 @@ def serve_full(eng, prompt_len, scrub_policy=None, shared=0):
         eng.device)}, new_tokens=NEW_TOKENS, arrival=4 * i,
         app_id="chat" if i % 2 else "batch") for i, t in enumerate(toks)]
     sch = ContinuousScheduler(eng, capacity=CAPACITY,
-                              scrub_policy=scrub_policy)
+                              scrub_policy=scrub_policy,
+                              wear_policy=wear_policy)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -635,9 +688,12 @@ def serve_full(eng, prompt_len, scrub_policy=None, shared=0):
             0 <= x < cfg.vocab_size for t in toks for x in t):
         raise AssertionError("full-width serve: bad token output")
     tot = rep["total"]
+    lost = lost_bits() if lost_bits is not None else 0
     if not (math.isfinite(tot["energy_pj"]) and tot["energy_pj"] > 0
-            and 0.0 < tot["ber_realized"] < 0.1):
-        raise AssertionError(f"full-width serve: implausible ledger {tot}")
+            and 0.0 < (tot["bit_errors"] - lost) / tot["bits_written"]
+            < 0.1):
+        raise AssertionError(f"full-width serve: implausible ledger {tot}, "
+                             f"{lost} bits lost to stuck-at rows")
     return rep, sch, wall
 
 
@@ -692,7 +748,7 @@ def phase_full(device):
           "write_skip_rate": tot["write_skip_rate"],
           "bursts_sync_free": True,
           "extent_write_launches": launches["extent_write"], "ok": True})
-    return launches["extent_write"], eng, sch
+    return launches["extent_write"], eng, sch, rep
 
 
 def phase_retention(device, eng_full):
@@ -1007,6 +1063,232 @@ def phase_soft_errors(device, eng_full):
     emit({"phase": "soft_errors", "soft_error_ber": ber,
           "strike_probability": p, **runs, "bursts_sync_free": True,
           "ok": True})
+
+
+# ---------------------------------------------------------------------------
+# physical addressing, endurance wear and wear leveling
+# ---------------------------------------------------------------------------
+
+#: the wear phase's row groups (ring columns), the steps between wear
+#: checkpoints and the hot-row wear that arms a rotation (one group)
+WEAR_GROUP_COLS, WEAR_CHECK, WEAR_HOT = 8, 2, 8
+#: an endurance budget (writes + scrubs a row group survives) that the
+#: hottest groups exhaust before the full-width run ends: 32 of the 144
+#: groups of each K/V leaf. A scrub pass or a migration adds 8 to each
+#: group it covers (one per column per slot), beside the 8 decode writes
+#: a request makes in each group it sweeps, so the run's hottest group
+#: reaches 36 and a budget of 12 would wear out 56 of each leaf's 144
+WEAR_BUDGET = 24
+#: the failure run's scrub window (ring columns a pass)
+WEAR_SCRUB_COLS = 32
+#: the reduced wear run's budget (fixture trace, groups of 4 columns)
+REDUCED_WEAR_BUDGET = 6
+
+
+@contextlib.contextmanager
+def wear_probes():
+    """Record, while inside, the host ms of every wear checkpoint that
+    read the device (``ContinuousScheduler._maybe_wear_check``; it waits
+    for the queued burst) and the bits every stuck-at gate lost
+    (``memory.plan._stuck_gate``'s count, kept on the device)."""
+    from repro_torch.memory import plan as P
+    from repro_torch.serve import scheduler as S
+    check, gate = S.ContinuousScheduler._maybe_wear_check, P._stuck_gate
+    out = {"check_ms": [], "lost": []}
+
+    def timed_check(self, clock):
+        before = self._last_wear_check
+        t0 = time.perf_counter()
+        check(self, clock)
+        if self._last_wear_check != before:
+            out["check_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def counted_gate(old, new, worn):
+        gated, lost = gate(old, new, worn)
+        out["lost"].append(lost)
+        return gated, lost
+
+    S.ContinuousScheduler._maybe_wear_check = timed_check
+    P._stuck_gate = counted_gate
+    try:
+        yield out
+    finally:
+        S.ContinuousScheduler._maybe_wear_check = check
+        P._stuck_gate = gate
+
+
+def scrub_window_lanes(sch, cursor, cols):
+    """The lanes a windowed scrub pass hands the kernel: per K and V
+    leaf, the ``cols`` physical rows from ``cursor`` mapped through the
+    run's shifts to logical columns, gathered, with the stuck rows'
+    decayed bits held out of the mask (``reliability.scrub``'s steps)."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core.priority import Priority
+    from repro_torch.kernels.extent_write import ops
+    from repro_torch.memory import address as A
+    eng = sch.eng
+    plan, shifts = eng.plan, sch.addr.shifts
+    worn = eng.life_plan.worn_groups(sch.life)
+    out = []
+    for i, (x, m, v) in enumerate(zip(T.leaves(sch.pool.cache),
+                                      sch.life.masks,
+                                      eng.vectors_for_floor(Priority.LOW))):
+        if m is None:
+            continue
+        ax = plan.leaf_seq_axis[i]
+        C = x.shape[ax]
+        idx = A.logical_col((cursor + torch.arange(
+            cols, dtype=torch.int64, device=x.device)) % C, shifts[i], C)
+        wx, wm = x.index_select(ax, idx), m.index_select(ax, idx)
+        if worn is not None:
+            stuck = A.worn_element_mask(worn[i], shifts[i], wm.shape, ax, 1,
+                                        plan.address_spec, cols=idx,
+                                        n_cols=C)
+            wm = torch.where(stuck, torch.zeros_like(wm), wm)
+        out.append((ops.to_lanes(wx), ops.to_lanes(wm),
+                    (v.thr01, v.thr10, v.le01, v.le10)))
+    return out
+
+
+def phase_wear(device, eng_full, full_rep, full_launches):
+    """The ``full`` traffic on qwen2.5-3b at full width with the physical
+    addressing layer on, three times: (a) identity — rotate with a
+    hot-row level no group reaches, equal to ``full`` in tokens, flips,
+    errors, stream energies and extent_write launches; (b) leveling —
+    rotate by one group of 8 columns when the hottest group gained 8,
+    checked every 2 steps: rotations, remap energy booked to the ledger,
+    and the wear of (a) plus the migrations'; (c) failure — (b) with an endurance budget of
+    24, retention at 350 K (1000 s a step) and periodic scrubbing of
+    32-column windows every 8 steps through the rotation. Times the wear
+    checkpoints and, on (c)'s end-of-run state, the windowed scrub pass
+    and its kernel. Returns (the windowed scrub's timing entry, (c)'s
+    scrub launches, the launches of the three runs)."""
+    import dataclasses
+    import torch
+    from repro_torch import rng
+    from repro_torch.core.priority import Priority
+    from repro_torch.reliability import make_scrub_policy, make_wear_policy
+    from repro_torch.serve import ServingEngine
+    base = dict(wear_policy="rotate", remap_group_cols=WEAR_GROUP_COLS)
+    cases = {
+        "identity": (base, dict(hot_row_wear=10 ** 9), None),
+        "leveling": (base, dict(hot_row_wear=WEAR_HOT), None),
+        "failure": (dict(base, endurance_budget=WEAR_BUDGET,
+                         retention_scale=1000.0, ambient_k=350.0),
+                    dict(hot_row_wear=WEAR_HOT),
+                    make_scrub_policy("periodic", interval=8,
+                                      cols_per_pass=WEAR_SCRUB_COLS)),
+    }
+    runs, reps, launches_by_run = {}, {}, {}
+    for name, (scfg, pol, scrub) in cases.items():
+        eng = ServingEngine(eng_full.cfg, dataclasses.replace(
+            eng_full.scfg, **scfg), eng_full.params, device=device)
+        step_ms = decode_step_ms(eng, PROMPT_LEN, CAPACITY)
+        policy = make_wear_policy(
+            "rotate", check_interval=WEAR_CHECK, rotate_step=WEAR_GROUP_COLS,
+            **pol)
+        with wear_probes() as probe:
+            def lost_bits():
+                return (int(torch.stack(probe["lost"]).sum())
+                        if probe["lost"] else 0)
+
+            reset_launches()
+            rep, sch, wall = serve_full(eng, PROMPT_LEN, scrub_policy=scrub,
+                                        wear_policy=policy,
+                                        lost_bits=lost_bits)
+            launches = read_launches()
+        check_write_launches(launches, rep)
+        lost = lost_bits()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sch.read_wear()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        w, lt = rep["wear"], rep["lifetime"]
+        runs[name] = {
+            "wall_s": wall, "tokens_per_s": N_REQ * NEW_TOKENS / wall,
+            "decode_ms_per_step_b4": step_ms,
+            "wear_checks": len(probe["check_ms"]),
+            "wear_check_ms_in_run": probe["check_ms"],
+            "wear_check_ms_mean": (sum(probe["check_ms"])
+                                   / max(1, len(probe["check_ms"]))),
+            "wear_read_ms_idle": read_ms,
+            "launches": launches, "lost_bits": lost, **w,
+            "row_wear_total": int(sch.life.row_wear().sum()),
+            "lifetime_remap_energy_pj": lt["remap_energy_pj"],
+            "kv_decode": rep["streams"]["kv_decode"],
+            "kv_write_energy_pj": rep["total"]["energy_pj"],
+            "ber": rep["total"]["ber_realized"]}
+        reps[name] = (rep, sch, eng)
+        launches_by_run[name] = launches
+        if name != "failure":
+            del sch
+            gc.collect()
+    # (a) the layer on and never rotating changes nothing
+    rep_a = reps["identity"][0]
+    a = runs["identity"]
+    same = (a["rotations"] == 0 and a["remap_energy_pj"] == 0.0
+            and a["launches"]["extent_write"] == full_launches
+            and all(rep_a["streams"][s] == full_rep["streams"][s]
+                    for s in ("kv_prefill", "kv_decode"))
+            and all(rep_a["requests"][i][f] == full_rep["requests"][i][f]
+                    for i in full_rep["requests"]
+                    for f in ("tokens", "flips", "errors", "energy_pj")))
+    if not same:
+        raise AssertionError(f"wear (a) identity differs from full: {a}")
+    # (b) leveling rotates and books the remap energy; its wear is (a)'s
+    # decode writes plus each rotation's migration, which re-drives one
+    # group of every slot of the K and V leaves. (With two requests a
+    # slot, that migration wear outweighs what the spreading saves, so
+    # the peak group wear rises: reported, not gated.)
+    b = runs["leveling"]
+    migrated = b["rotations"] * WEAR_GROUP_COLS * CAPACITY * 2
+    if not (b["rotations"] >= 1 and b["remap_energy_pj"] > 0
+            and b["lifetime_remap_energy_pj"] == b["remap_energy_pj"]
+            and b["row_wear_total"] == a["row_wear_total"] + migrated):
+        raise AssertionError(f"wear (b) leveling: {b}, identity {a}")
+    # (c) worn groups are stuck-at: the lost bits land in kv_decode's
+    # errors on top of the driver's own failures
+    c = runs["failure"]
+    rep_c, sch_c, eng_c = reps["failure"]
+    errors_b, errors_c = (r["kv_decode"]["bit_errors"] for r in (b, c))
+    if not (c["worn_groups"] > 0 and c["lost_bits"] > 0
+            and errors_c >= c["lost_bits"] and errors_c > errors_b
+            and c["launches"]["scrub"]
+            == 2 * rep_c["lifetime"]["scrub_passes"] > 0):
+        raise AssertionError(f"wear (c) failure: {c}, leveling {b}")
+    # the windowed scrub through the rotation on (c)'s end-of-run state:
+    # the whole pass (gather, two kernel launches, scatter, the mask's
+    # bookkeeping) by CUDA events, the kernel on the gathered window
+    # the window is the one the run's next pass would scrub
+    cursor = sch_c._scrub_cursor
+    key = rng.PRNGKey(6)
+    vec = eng_c.vectors_for_floor(Priority.LOW)
+    with uncounted("scrub"):
+        pass_ms = cuda_ms(lambda: eng_c.scrub(
+            key, sch_c.pool.cache, sch_c.life, vec, cols=WEAR_SCRUB_COLS,
+            cursor=cursor, shifts=sch_c.addr.shifts), iters=10, warmup=2)
+    window = time_scrubs(
+        f"window of {WEAR_SCRUB_COLS} ring columns from physical row "
+        f"{cursor} through the rotation (shifts "
+        f"{sch_c.addr.shifts.tolist()}), stuck rows held out",
+        scrub_window_lanes(sch_c, cursor, WEAR_SCRUB_COLS))
+    window.update({"pass_ms": pass_ms,
+                   "pass_lanes": 2 * window["lanes_per_launch"],
+                   "pass_ms_per_lane": pass_ms / (
+                       2 * window["lanes_per_launch"]),
+                   "ms_per_lane": window["ms"] / window["lanes_per_launch"],
+                   "bound_ms_per_lane": window["bound_ms"]
+                   / window["lanes_per_launch"]})
+    for r in runs.values():
+        r["kv_decode"] = {k: r["kv_decode"][k] for k in (
+            "energy_pj", "bits_written", "bit_errors")}
+    emit({"phase": "wear", "arch": eng_full.cfg.name,
+          "group_cols": WEAR_GROUP_COLS, "check_interval": WEAR_CHECK,
+          "hot_row_wear": WEAR_HOT, "endurance_budget": WEAR_BUDGET,
+          "scrub_cols": WEAR_SCRUB_COLS, **runs,
+          "windowed_scrub": window, "bursts_sync_free": True, "ok": True})
+    return window, c["launches"]["scrub"], launches_by_run
 
 
 def att_inputs(B, S, H, Kh, h, dtype, seed, device, q_scale=1.0):
@@ -1850,7 +2132,7 @@ def main() -> int:
     phase_rng_device(device)
     phase_reduced(device)
     phase_reduced_hybrid(device)
-    launches, eng, sch = phase_full(device)
+    launches, eng, sch, full_rep = phase_full(device)
     s_launches, r_sch = phase_retention(device, eng)
     # the dense path's entries are timed on its own state, which is then
     # freed, so the hybrid phase's peak memory is its own
@@ -1862,6 +2144,15 @@ def main() -> int:
     phase_oracle(device, eng)
     phase_prefix(device, eng)
     phase_soft_errors(device, eng)
+    window, w_scrub, w_launches = phase_wear(device, eng, full_rep, launches)
+    # the wear runs' launches and the windowed scrub's times join the
+    # entries of the kernels they drove
+    entries[0]["launches_by_path"] = {
+        "full": launches, **{f"wear_{k}": v["extent_write"]
+                             for k, v in w_launches.items()}}
+    entries[1]["launches_by_path"] = {"retention": s_launches,
+                                      "wear_failure": w_scrub}
+    entries[1]["at"]["window_through_rotation"] = window
     del eng
     gc.collect()
     torch.cuda.empty_cache()

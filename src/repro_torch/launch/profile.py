@@ -45,8 +45,9 @@ def steady_burst(eng: ServingEngine, batch: int, prompt_len: int,
     """Prefill a full pool of ``batch`` random prompts of ``prompt_len``
     tokens (drawn from ``seed``) at the LOW floor; returns ``run(n)``,
     which decodes ``n`` fused steps from that state (with the retention
-    decay when the engine has it on). The state is not carried over, so
-    every call repeats the same steps."""
+    decay and the wear layer, through the identity map, when the engine
+    has them on). The state is not carried over, so every call repeats
+    the same steps."""
     device = eng.device
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, eng.cfg.vocab_size, (batch, prompt_len))).to(device)
@@ -59,12 +60,13 @@ def steady_burst(eng: ServingEngine, batch: int, prompt_len: int,
     if eng.life_plan is not None:
         life = eng.life_plan.init_state(cache)
         rvec = eng.retention_vectors_for(Priority.LOW)
+    shifts = eng.plan.identity_address().shifts if eng.wear else None
 
     def run(n: int):
         return eng.burst(eng.params, tok, cache, pos, key,
                          WriteStats.zero(device),
                          zero_slot_stats(batch, device), active, vec, life,
-                         rvec, n=n)
+                         rvec, shifts, n=n)
 
     return run
 

@@ -31,6 +31,17 @@ on retention decay at ``--ambient-k`` kelvin; ``--scrub-policy`` runs
 background scrub passes between bursts (whole leaves, or windows of
 ``--scrub-cols`` ring columns) and implies ``--retention-scale 1000``
 when that is left at 0. The report then ends with the lifetime ledger.
+
+``--wear-policy rotate`` turns on the physical addressing layer and wear
+leveling (continuous mode): every ``--wear-check-interval`` steps the
+scheduler reads the row-group wear of ``--remap-group-cols`` ring
+columns and rotates the column map by one group once the hottest group
+has gained ``--hot-row-wear``. ``--endurance-budget N`` makes groups
+that reach N writes and scrubs stuck-at. The report adds the kv_remap
+stream and the wear-leveling line:
+
+  python -m repro_torch.launch.serve --wear-policy rotate \
+      --remap-group-cols 4 --wear-check-interval 2 --hot-row-wear 2
 """
 from __future__ import annotations
 
@@ -43,7 +54,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.priority import Priority
 from repro_torch.device import resolve_device
 from repro_torch.memory import available_backends
-from repro_torch.reliability import make_scrub_policy
+from repro_torch.reliability import make_scrub_policy, make_wear_policy
 from repro_torch.serve import (ContinuousScheduler, ServeConfig,
                                ServingEngine, synthetic_requests)
 from repro_torch.telemetry import render_report
@@ -107,6 +118,23 @@ def main(argv=None):
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="leading prompt tokens shared by every synthetic "
                          "request")
+    ap.add_argument("--wear-policy", default="none",
+                    choices=("none", "rotate"),
+                    help="wear leveling over the logical -> physical "
+                         "column map (continuous mode): 'rotate' rotates "
+                         "it when hot-row wear concentrates, paying a "
+                         "migration write (the remap energy)")
+    ap.add_argument("--endurance-budget", type=int, default=0,
+                    help="writes+scrubs a physical row group survives "
+                         "before going stuck-at (0 = unbounded)")
+    ap.add_argument("--remap-group-cols", type=int, default=8,
+                    help="ring columns per physical row group (the wear "
+                         "and failure granularity)")
+    ap.add_argument("--wear-check-interval", type=int, default=8,
+                    help="decode steps between device wear reads")
+    ap.add_argument("--hot-row-wear", type=int, default=16,
+                    help="max-group wear since the last rotation that "
+                         "arms the next one")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -128,7 +156,10 @@ def main(argv=None):
                            soft_error_hardened=not args.soft_error_unhardened,
                            prefix_cache=args.prefix_cache,
                            prefix_chunk=args.prefix_chunk,
-                           prefix_table_size=args.prefix_table_size)
+                           prefix_table_size=args.prefix_table_size,
+                           wear_policy=args.wear_policy,
+                           endurance_budget=args.endurance_budget,
+                           remap_group_cols=args.remap_group_cols)
 
     soft = dict(soft_error_ber=args.soft_error_ber,
                 soft_error_hardened=not args.soft_error_unhardened)
@@ -189,8 +220,17 @@ def main(argv=None):
         scrub_policy = make_scrub_policy(args.scrub_policy,
                                          interval=args.scrub_interval,
                                          cols_per_pass=args.scrub_cols)
+    wear_policy = None
+    if args.wear_policy != "none":
+        # rotate by a whole row group: the hot columns hop to fresh
+        # physical rows instead of shuffling inside one group
+        wear_policy = make_wear_policy(
+            args.wear_policy, check_interval=args.wear_check_interval,
+            rotate_step=args.remap_group_cols,
+            hot_row_wear=args.hot_row_wear)
     report = ContinuousScheduler(eng, capacity=args.capacity,
-                                 scrub_policy=scrub_policy).run(reqs)
+                                 scrub_policy=scrub_policy,
+                                 wear_policy=wear_policy).run(reqs)
     for line in render_report(report, backend=eng.backend,
                               show_extent=not args.no_extent, **soft):
         print(line)

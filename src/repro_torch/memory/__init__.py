@@ -1,9 +1,12 @@
 """repro_torch.memory — the EXTENT write-path substrate of the port.
 
 ``WritePlan`` (resolve-once policy), the single-tensor ``write``, the
-backend registry (``oracle``, ``lanes_ref``, ``cuda``, ``exact``) and the
-device-resident ``WriteStats``.
+backend registry (``oracle``, ``lanes_ref``, ``cuda``, ``exact``), the
+device-resident ``WriteStats`` and the physical addressing layer
+(``AddressSpec``, ``AddressState``).
 """
+from repro_torch.memory.address import (  # noqa: F401
+    AddressSpec, AddressState)
 from repro_torch.memory.backends import (  # noqa: F401
     Backend, LeafVectors, available_backends, default_backend, get_backend,
     register_backend)

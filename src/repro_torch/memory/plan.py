@@ -21,10 +21,19 @@ Built once per cache structure, it captures
     a decode write), counted in ``WriteStats.soft_strikes``;
   * column aliasing for the prefix cache (``alias_cols``): a slot's
     leading linked ring columns keep their stored bits, so the write
-    skips them at zero cost; ``alias_saving`` prices what that saves.
+    skips them at zero cost; ``alias_saving`` prices what that saves;
+  * the optional physical addressing layer (``address_spec``,
+    ``memory.address``): ``write`` and ``write_columns`` take
+    ``addr=(shifts, worn)``; elements backed by worn physical row
+    groups are stuck-at — the gate runs *before* the backend's write, so
+    they keep their stored bits (zero energy under CMP) and the flips
+    they lost are added to ``WriteStats.errors``. The backend's
+    arguments and its flat-index hash do not change, so identity shifts
+    with no worn rows equal ``addr=None`` bit for bit.
+    ``migration_cost`` prices one wear-leveling rotation.
 
 Effective level = max(static policy, floor); EXACT leaves bypass the
-driver. Address remapping is a later slice.
+driver.
 """
 from __future__ import annotations
 
@@ -40,12 +49,13 @@ from repro_torch import tree as T
 from repro_torch.core import write_driver
 from repro_torch.core.approx_store import soft_error_strikes
 from repro_torch.core.priority import (Priority, bitplane_priorities, bits_of,
-                                       kv_cache_policy)
+                                       int_type, kv_cache_policy)
 from repro_torch.kernels.extent_write import ops as xops
+from repro_torch.memory import address as A
 from repro_torch.memory.backends import (Backend, LeafVectors,
                                          default_backend, get_backend)
 from repro_torch.memory.rng_streams import SOFT_ERROR_OFFSET
-from repro_torch.memory.stats import WriteStats
+from repro_torch.memory.stats import WriteStats, popcount
 
 
 #: cache leaves carry the request/slot dimension at axis 1
@@ -84,6 +94,19 @@ def _approximate(leaf, tag: Priority) -> bool:
     return leaf.dtype.is_floating_point and tag != Priority.EXACT
 
 
+def _stuck_gate(old: torch.Tensor, new: torch.Tensor, worn: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stuck-at gating of worn physical rows: elements under ``worn``
+    keep their stored value, and every bit the write would have changed
+    there counts as a failed write. Returns (gated new, lost bits as a
+    0-d int64). The gated new equals the old on worn rows, so the CMP
+    write that follows charges no flips and no energy there."""
+    it = int_type(old.dtype)
+    d = old.view(it) ^ new.view(it)
+    lost = popcount(torch.where(worn, d, torch.zeros_like(d)))
+    return torch.where(worn, old, new), lost
+
+
 @dataclasses.dataclass
 class WritePlan:
     backend: Backend
@@ -94,16 +117,22 @@ class WritePlan:
     floor_vectors: Dict[Priority, Tuple[Optional[LeafVectors], ...]]
     soft_error_ber: float = 0.0
     soft_error_hardened: bool = True
+    #: the physical addressing layer; None = no remap and no stuck-at
+    #: gating, the plain data path
+    address_spec: Optional[A.AddressSpec] = None
 
     @classmethod
     def for_tree(cls, tree: Any, *, device, backend: str,
                  axes: Any, soft_error_ber: float = 0.0,
-                 soft_error_hardened: bool = True) -> "WritePlan":
+                 soft_error_hardened: bool = True,
+                 address_spec: Optional[A.AddressSpec] = None
+                 ) -> "WritePlan":
         """Resolve ``kv_cache_policy`` over ``tree`` (leaves need only
         ``dtype``) for the registry backend ``backend``. ``axes`` is a
         same-structure tree of logical-axis tuples; leaves whose tuple
         holds ``"kv_seq"`` get the column-scoped decode write.
-        ``soft_error_ber > 0`` turns the post-write upset hook on."""
+        ``soft_error_ber > 0`` turns the post-write upset hook on;
+        ``address_spec`` the addressing layer."""
         device = torch.device(device)
         flat = T.flatten(tree)
         levels = []
@@ -123,21 +152,21 @@ class WritePlan:
                    leaf_levels=tuple(levels), leaf_seq_axis=seq_axis,
                    device=device, floor_vectors=floor_vectors,
                    soft_error_ber=soft_error_ber,
-                   soft_error_hardened=soft_error_hardened)
+                   soft_error_hardened=soft_error_hardened,
+                   address_spec=address_spec)
 
     def vectors_for(self, floor: Priority
                     ) -> Tuple[Optional[LeafVectors], ...]:
         """Per-leaf operands for one quality floor (LOW = static policy)."""
         return self.floor_vectors[Priority.coerce(floor)]
 
-    def alias_saving(self, tree: Any, cols: int) -> Tuple[float, int]:
-        """Host constants (energy_pj, bits) of driving ``cols`` leading
-        ring columns of ONE slot across the sequence-axis leaves, every
-        bit priced at the mean of the static 0->1/1->0 per-plane write
-        prices: the full-drive cost of the columns a prefix link skips.
-        The scheduler books both a link's saving and a copy-on-write's
-        charge through it, so the two cancel exactly. Host arithmetic
-        only (the level table), as the reference computes it."""
+    def _price_ring_cols(self, tree: Any, cols: int, per_slot: bool
+                         ) -> Tuple[float, int]:
+        """Host constants (energy_pj, bits) of driving ``cols`` ring
+        columns of every ring leaf — of ONE slot (``per_slot``) or of
+        all slots — every bit priced at the mean of the static 0->1/1->0
+        per-plane write prices (host arithmetic on the level table, as
+        the reference computes it)."""
         table = write_driver.level_table()
         pj, bits = 0.0, 0
         for (_, leaf), lvl, ax in zip(T.flatten(tree), self.leaf_levels,
@@ -145,13 +174,67 @@ class WritePlan:
             if lvl is None or ax is None:
                 continue
             C = leaf.shape[ax]
-            B = leaf.shape[BATCH_AXIS]
-            elems = leaf.numel() // (C * B) * min(int(cols), C)
+            rows = leaf.numel() // C
+            if per_slot:
+                rows //= leaf.shape[BATCH_AXIS]
+            elems = rows * min(int(cols), C)
             codes = bitplane_priorities(leaf.dtype, lvl)
             eb = (table["e01"][codes] + table["e10"][codes]) / 2.0
             pj += float(elems) * float(eb.sum())
             bits += elems * bits_of(leaf.dtype)
         return pj, bits
+
+    def alias_saving(self, tree: Any, cols: int) -> Tuple[float, int]:
+        """Host constants (energy_pj, bits) of driving ``cols`` leading
+        ring columns of ONE slot across the sequence-axis leaves: the
+        full-drive cost of the columns a prefix link skips. The
+        scheduler books both a link's saving and a copy-on-write's charge
+        through it, so the two cancel exactly."""
+        return self._price_ring_cols(tree, cols, per_slot=True)
+
+    def migration_cost(self, tree: Any) -> Tuple[float, int]:
+        """Host constants (energy_pj, bits) of ONE start-gap migration:
+        one ``group_cols``-wide row group of every slot of every ring
+        leaf copied through the controller's row buffer, priced as
+        ``alias_saving`` prices a column. The one source of the remap
+        pricing."""
+        assert self.address_spec is not None, "plan has no address layer"
+        return self._price_ring_cols(tree, self.address_spec.group_cols,
+                                     per_slot=False)
+
+    # ------------------------------------------------------ address layer
+    def rotatable(self) -> Tuple[bool, ...]:
+        """Per leaf: does the wear-leveling rotation apply? Only
+        approximate leaves with a ring axis have columns to rotate."""
+        return tuple(lvl is not None and ax is not None
+                     for lvl, ax in zip(self.leaf_levels,
+                                        self.leaf_seq_axis))
+
+    def identity_address(self) -> A.AddressState:
+        """The identity permutation of this plan's leaves, on its device
+        (bit-identical to no address layer)."""
+        return A.AddressState.identity(len(self.leaf_levels), self.device)
+
+    def _worn_elem(self, i: int, leaf: torch.Tensor, shifts, worn
+                   ) -> Optional[torch.Tensor]:
+        """Stuck-at mask of leaf ``i`` under the address operands,
+        broadcastable to it; None when gating is off."""
+        if worn is None or self.address_spec is None:
+            return None
+        return A.worn_element_mask(worn[i], shifts[i], leaf.shape,
+                                   self.leaf_seq_axis[i], BATCH_AXIS,
+                                   self.address_spec)
+
+    def _gated_write(self, key, i, o, n, lv, wm):
+        """``_leaf_write`` behind the stuck-at gate ``wm`` (None: none);
+        the lost flips join the write's errors."""
+        lost = None
+        if wm is not None:
+            n, lost = _stuck_gate(o, n, wm)
+        s, st = self._leaf_write(key, i, o, n, lv)
+        if lost is not None:
+            st = dataclasses.replace(st, errors=st.errors + lost)
+        return s, st
 
     def _flat(self, old_tree, new_tree):
         flat_old = T.flatten(old_tree)
@@ -192,7 +275,9 @@ class WritePlan:
 
     def write(self, key: np.ndarray, old_tree: Any, new_tree: Any,
               vectors: Sequence,
-              alias_cols: Optional[torch.Tensor] = None
+              alias_cols: Optional[torch.Tensor] = None,
+              addr: Optional[Tuple[torch.Tensor,
+                                   Optional[torch.Tensor]]] = None
               ) -> Tuple[Any, WriteStats]:
         """Diff-write a full tree (or a row subset of the same structure)
         with the per-leaf operands ``vectors`` (``vectors_for``); returns
@@ -203,7 +288,13 @@ class WritePlan:
         the stored (old) bits, so the write skips them — zero energy,
         flips and WER there. Every other element stores what the
         unaliased call stores (the RNG hashes flat element indices), and
-        an all-zero alias equals ``alias_cols=None`` bit for bit."""
+        an all-zero alias equals ``alias_cols=None`` bit for bit.
+
+        ``addr`` is the optional addressing pair ``(shifts (L,) int64,
+        worn (L, G) bool or None)``: elements backed by worn physical
+        row groups are stuck-at (they keep the old bits, and the flips
+        they lost are booked to ``errors``)."""
+        shifts, worn = addr if addr is not None else (None, None)
         olds, news = self._flat(old_tree, new_tree)
         stored = []
         acc = WriteStats.zero(self.device)
@@ -214,21 +305,30 @@ class WritePlan:
             keep = self.alias_keep(i, o, alias_cols)
             if keep is not None:
                 n = torch.where(keep, o, n)
-            s, st = self._leaf_write(key, i, o, n, vectors[i])
+            s, st = self._gated_write(key, i, o, n, vectors[i],
+                                      self._worn_elem(i, o, shifts, worn))
             stored.append(s)
             acc = acc + st
         return T.unflatten(list(self.paths), stored), acc
 
     def write_columns(self, key: np.ndarray, old_tree: Any, new_tree: Any,
                       pos: torch.Tensor, vectors: Sequence,
-                      alias_cols: Optional[torch.Tensor] = None
+                      alias_cols: Optional[torch.Tensor] = None,
+                      addr: Optional[Tuple[torch.Tensor,
+                                           Optional[torch.Tensor]]] = None
                       ) -> Tuple[Any, WriteStats]:
         """Column-scoped decode diff-write: sequence-axis leaves write only
         the ring column at ``pos % C`` per slot (``pos`` is the (B,)
         int64 position vector); the accounting equals a full diff because
         everything outside the column is unchanged. With ``alias_cols``
         a slot whose column lies in its linked prefix (``pos <
-        alias_cols``) keeps its stored bits."""
+        alias_cols``) keeps its stored bits. With ``addr`` (see
+        ``write``) the column's address maps through the rotation to its
+        physical row group, and a slot whose group is worn has its column
+        write inhibited; the hash still runs over the gathered column's
+        flat index, which does not depend on the address."""
+        shifts, worn = addr if addr is not None else (None, None)
+        gate = worn is not None and self.address_spec is not None
         olds, news = self._flat(old_tree, new_tree)
         stored = []
         acc = WriteStats.zero(self.device)
@@ -238,7 +338,9 @@ class WritePlan:
                 continue
             ax = self.leaf_seq_axis[i]
             if ax is None:
-                s, st = self._leaf_write(key, i, o, n, vectors[i])
+                s, st = self._gated_write(
+                    key, i, o, n, vectors[i],
+                    self._worn_elem(i, o, shifts, worn))
                 stored.append(s)
                 acc = acc + st
                 continue
@@ -252,7 +354,11 @@ class WritePlan:
             if alias_cols is not None:
                 keep = (pos < alias_cols).reshape(ishape)
                 n_col = torch.where(keep, o_col, n_col)
-            s_col, st = self._leaf_write(key, i, o_col, n_col, vectors[i])
+            wm = (A.worn_slot_mask(worn[i], pos, shifts[i], C,
+                                   self.address_spec).reshape(ishape)
+                  if gate else None)
+            s_col, st = self._gated_write(key, i, o_col, n_col, vectors[i],
+                                          wm)
             stored.append(n.scatter(ax, idx, s_col))
             acc = acc + st
         return T.unflatten(list(self.paths), stored), acc

@@ -11,9 +11,31 @@ a run writes (the JAX package needs two int32 limbs for the same).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
+
+
+def popcount(m: torch.Tensor) -> torch.Tensor:
+    """Set bits of an integer tensor, summed to a 0-d int64 (a 256-entry
+    byte table: torch has no popcount)."""
+    return popcount_rows(m.reshape(1, -1))[0]
+
+
+def popcount_rows(m: torch.Tensor) -> torch.Tensor:
+    """Set bits of each row of a 2-d integer tensor: (rows,) int64."""
+    table = _byte_popcount(m.device)
+    b = m.contiguous().view(torch.uint8).reshape(m.shape[0], -1)
+    return table[b.to(torch.int64)].sum(1)
+
+
+@functools.lru_cache(maxsize=4)
+def _byte_popcount(device: torch.device) -> torch.Tensor:
+    """Set bits of every byte value, built on ``device`` by device ops
+    (no copy from the host, so a burst may build it)."""
+    v = torch.arange(256, dtype=torch.int64, device=device)
+    return sum((v >> b) & 1 for b in range(8))
 
 
 @dataclasses.dataclass(frozen=True)

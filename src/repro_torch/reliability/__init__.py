@@ -8,10 +8,13 @@
                    ``repro_torch.memory`` backend registry;
   * ``policy``   — host-side scrub scheduling (periodic, wear-aware,
                    quality-floor), which the serving scheduler consults
-                   between bursts.
+                   between bursts;
+  * ``wear``     — host-side wear-leveling policies (when to rotate the
+                   physical address map), consulted at the scheduler's
+                   periodic wear checkpoints.
 
-Wear leveling, the per-die and row-group state, and the checkpoint
-integrity pass of ``repro.reliability`` belong to later slices.
+The per-die state and the checkpoint integrity pass of
+``repro.reliability`` belong to later slices.
 """
 from repro_torch.reliability.lifetime import (  # noqa: F401
     MIN_P_STEP, RETENTION_DERATE, LifetimePlan, LifetimeState,
@@ -20,3 +23,5 @@ from repro_torch.reliability.policy import (  # noqa: F401
     PeriodicScrub, QualityFloorScrub, ScrubPolicy, WearAwareScrub,
     make_scrub_policy)
 from repro_torch.reliability.scrub import scrub_tree  # noqa: F401
+from repro_torch.reliability.wear import (  # noqa: F401
+    RotateWearPolicy, WearPolicy, make_wear_policy)

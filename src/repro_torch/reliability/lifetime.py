@@ -30,9 +30,17 @@ of the reference's unsigned view.
 State carried per leaf on the device: ``masks`` (XOR record of the bits
 that differ from their written value), ``write_count`` / ``scrub_count``
 (per-leaf wear), ``last_write_step`` / ``last_scrub_step`` and
-``retention_flips`` (all sampled decay flips). The per-die vectors, the
-row-group wear counters and the checkpoint integrity pass belong to
-later slices.
+``retention_flips`` (all sampled decay flips).
+
+Endurance wear is also kept per physical row group
+(``row_write_count`` / ``row_scrub_count``, (L, G)), the granularity the
+wear-leveling policy and the endurance-budget failure model work at:
+one unit per column write or scrubbed column, booked to the group the
+*rotated* address lands in (``repro_torch.memory.address``). Without an
+``AddressSpec`` on the plan G is 1 and nothing books there.
+``worn_groups`` turns the counters into the stuck-at map, on the device,
+inside the burst. The per-die vectors and the checkpoint integrity pass
+belong to later slices.
 """
 from __future__ import annotations
 
@@ -49,8 +57,10 @@ from repro_torch.core import mtj, wer
 from repro_torch.core.priority import (Priority, bitplane_priorities,
                                        bits_of, int_type)
 from repro_torch.kernels.extent_write.ref import M32, mul32
+from repro_torch.memory import address as A
 from repro_torch.memory import rng_streams
 from repro_torch.memory.plan import BATCH_AXIS, WritePlan
+from repro_torch.memory.stats import popcount, popcount_rows
 from repro_torch.memory.rng_streams import K_BIT, K_ELEM, hash_u32
 
 #: per-priority Delta derate: the approximation floor sets the decay clock.
@@ -139,27 +149,17 @@ def _decay_leaf(seed: int, x: torch.Tensor, thr: np.ndarray
     return (x.view(it) ^ mask).view(x.dtype), mask, flips
 
 
-def popcount(m: torch.Tensor) -> torch.Tensor:
-    """Set bits of an integer tensor, summed to a 0-d int64 (a 256-entry
-    byte table: torch has no popcount)."""
-    table = _byte_popcount(m.device)
-    return table[m.contiguous().view(torch.uint8).to(torch.int64)].sum()
-
-
-@functools.lru_cache(maxsize=4)
-def _byte_popcount(device: torch.device) -> torch.Tensor:
-    return torch.tensor([bin(v).count("1") for v in range(256)],
-                        dtype=torch.int64, device=device)
-
-
 @dataclasses.dataclass(frozen=True)
 class LifetimeState:
     """Per-region lifetime state: device tensors, one mask per flat leaf
-    (``None`` for exact leaves) and (L,) int64 per-leaf counters."""
+    (``None`` for exact leaves), (L,) int64 per-leaf counters and (L, G)
+    int64 per-physical-row-group wear counters."""
     step: torch.Tensor                         # () i64 decode-step clock
     masks: Tuple[Optional[torch.Tensor], ...]  # decayed-bit XOR masks
     write_count: torch.Tensor                  # (L,) i64 writes per leaf
     scrub_count: torch.Tensor                  # (L,) i64 scrub passes
+    row_write_count: torch.Tensor              # (L, G) i64 column writes
+    row_scrub_count: torch.Tensor              # (L, G) i64 scrubbed cols
     retention_flips: torch.Tensor              # () i64 sampled decay flips
     last_write_step: torch.Tensor              # (L,) i64
     last_scrub_step: torch.Tensor              # (L,) i64
@@ -172,6 +172,11 @@ class LifetimeState:
             if m is not None:
                 total = total + popcount(m)
         return total
+
+    def row_wear(self) -> torch.Tensor:
+        """(L, G) cumulative row-group wear: writes and scrub re-writes
+        consume the same endurance budget."""
+        return self.row_write_count + self.row_scrub_count
 
 
 @dataclasses.dataclass
@@ -234,10 +239,147 @@ class LifetimePlan:
             for leaf, lvl in zip(flat, self.plan.leaf_levels))
         zl = torch.zeros((len(flat),), dtype=torch.int64,
                          device=self.plan.device)
+        zg = torch.zeros((len(flat), self.n_row_groups(tree)),
+                         dtype=torch.int64, device=self.plan.device)
         z = torch.zeros((), dtype=torch.int64, device=self.plan.device)
         return LifetimeState(step=z, masks=masks, write_count=zl,
-                             scrub_count=zl, retention_flips=z,
+                             scrub_count=zl, row_write_count=zg,
+                             row_scrub_count=zg, retention_flips=z,
                              last_write_step=zl, last_scrub_step=zl)
+
+    def n_row_groups(self, tree: Any) -> int:
+        """Padded row-group count G of the (L, G) wear counters: the most
+        groups of any approximate leaf under the plan's ``AddressSpec``
+        (1 without one)."""
+        spec = self.plan.address_spec
+        if spec is None:
+            return 1
+        return max((spec.n_groups(leaf.shape, ax, BATCH_AXIS)
+                    for leaf, lvl, ax in zip(T.leaves(tree),
+                                             self.plan.leaf_levels,
+                                             self.plan.leaf_seq_axis)
+                    if lvl is not None), default=1)
+
+    # ------------------------------------------------- physical addressing
+    def worn_groups(self, state: LifetimeState) -> Optional[torch.Tensor]:
+        """(L, G) bool stuck-at map of the endurance-budget failure model:
+        groups whose write+scrub wear has reached the budget accept no
+        more writes. None (a static decision: no gating work at all)
+        when the address layer is off or the budget unbounded."""
+        spec = self.plan.address_spec
+        if spec is None or spec.endurance_budget <= 0:
+            return None
+        return state.row_wear() >= spec.endurance_budget
+
+    def _approx_leaves(self, tree: Any):
+        """(leaf index, leaf, seq axis) of every approximate leaf."""
+        for i, (leaf, lvl, ax) in enumerate(zip(T.leaves(tree),
+                                                self.plan.leaf_levels,
+                                                self.plan.leaf_seq_axis)):
+            if lvl is not None:
+                yield i, leaf, ax
+
+    def record_column_write(self, state: LifetimeState, tree: Any,
+                            pos: torch.Tensor, active: torch.Tensor,
+                            shifts: torch.Tensor) -> LifetimeState:
+        """Book one decode step's column writes into the row-group
+        counters: each ACTIVE slot's write at ``pos % C`` maps through
+        the leaf's rotation to its physical group. Device scatter-adds
+        only (it runs inside the burst)."""
+        spec = self.plan.address_spec
+        if spec is None:
+            return state
+        act = active.to(torch.int64)
+        rw = state.row_write_count.clone()
+        for i, leaf, ax in self._approx_leaves(tree):
+            if ax is None:
+                g = torch.arange(pos.shape[0], dtype=torch.int64,
+                                 device=pos.device)
+            else:
+                g = A.column_group_ids(pos, shifts[i], leaf.shape[ax], spec)
+            rw[i].index_add_(0, g, act)
+        return dataclasses.replace(state, row_write_count=rw)
+
+    def record_admission_write(self, state: LifetimeState, tree: Any,
+                               idx: torch.Tensor, start: torch.Tensor,
+                               end: torch.Tensor, shifts: torch.Tensor
+                               ) -> LifetimeState:
+        """Book one admission prefill's column drives: admitted slot
+        ``idx[b]`` re-drove the logical ring columns ``[start[b],
+        end[b])`` of every ring leaf; with a prefix link ``start`` is the
+        linked depth, so shared columns wear once, at their owner's
+        admission. Non-ring approximate leaves book one whole-row drive
+        per admitted slot. Only the prefix-cache path calls this:
+        prefix-off runs book wear on decode columns only, as the
+        reference does."""
+        spec = self.plan.address_spec
+        if spec is None:
+            return state
+        rw = state.row_write_count.clone()
+        for i, leaf, ax in self._approx_leaves(tree):
+            if ax is None:
+                rw[i].index_add_(0, idx, torch.ones_like(idx))
+            else:
+                rw[i] += A.slot_window_group_counts(
+                    idx, start, end, shifts[i], leaf.shape[ax],
+                    rw.shape[1], spec)
+        return dataclasses.replace(state, row_write_count=rw)
+
+    def record_migration(self, state: LifetimeState, tree: Any,
+                         gap_start: int, cols: int) -> LifetimeState:
+        """Book one start-gap migration's row re-writes: the ``cols``-wide
+        physical window at ``gap_start`` (host ints) is re-driven once
+        per slot of every ring leaf. Migration writes consume the same
+        budget as data writes. Runs per rotation, outside the burst."""
+        spec = self.plan.address_spec
+        if spec is None:
+            return state
+        rw = state.row_write_count.clone()
+        for i, leaf, ax in self._approx_leaves(tree):
+            if ax is None:
+                continue
+            C = leaf.shape[ax]
+            rw[i] += A.window_group_counts(
+                gap_start % C, min(cols, C), C, leaf.shape[BATCH_AXIS],
+                rw.shape[1], spec, rw.device)
+        return dataclasses.replace(state, row_write_count=rw)
+
+    def slot_scores(self, state: LifetimeState, tree: Any) -> torch.Tensor:
+        """(B,) float32 placement score per slot for wear-aware
+        admission: the hottest row-group wear backing the slot's rows
+        plus its residual decayed bits (higher = a worse home for a
+        HIGH-quality request). The scheduler reads it at its wear
+        checkpoints, never per admission."""
+        spec = self.plan.address_spec or A.AddressSpec()
+        flat = T.leaves(tree)
+        B = flat[0].shape[BATCH_AXIS]
+        wear = state.row_wear()
+        wear_s = torch.zeros((B,), dtype=torch.float32, device=wear.device)
+        decay_s = torch.zeros_like(wear_s)
+        for i, leaf, ax in self._approx_leaves(tree):
+            gc = 1 if ax is None else spec.col_groups(leaf.shape[ax])
+            wear_s = torch.maximum(wear_s, wear[i, :B * gc].reshape(
+                B, gc).amax(1).to(torch.float32))
+            m = state.masks[i]
+            if m is not None:
+                decay_s = decay_s + popcount_rows(
+                    m.movedim(BATCH_AXIS, 0).reshape(B, -1)).to(
+                        torch.float32)
+        return wear_s + decay_s
+
+    def decayed_bits_by_slot(self, state: LifetimeState
+                             ) -> Optional[torch.Tensor]:
+        """(B,) int64 residual decayed bits per slot row (popcount of the
+        masks over every non-batch axis); None when no leaf carries a
+        mask."""
+        out = None
+        for m in state.masks:
+            if m is None:
+                continue
+            v = popcount_rows(m.movedim(BATCH_AXIS, 0).reshape(
+                m.shape[BATCH_AXIS], -1))
+            out = v if out is None else out + v
+        return out
 
     # -------------------------------------------------------------- advance
     def advance(self, key: np.ndarray, tree: Any, state: LifetimeState,

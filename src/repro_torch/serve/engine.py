@@ -26,6 +26,17 @@ runs one corrective pass between bursts. The decay streams fold off the
 step's write key, so the write and sampling schedule is the same with
 retention on or off, and a 300 K run equals a retention-off run.
 
+With a wear policy or an endurance budget (``wear_policy`` /
+``endurance_budget``) the physical addressing layer is on
+(``repro_torch.memory.address``): the burst takes the per-leaf remap
+``shifts`` (a device operand), derives the stuck-at map ``worn`` from
+the carried row-group counters on the device each step, writes with
+``addr=(shifts, worn)`` and books each column write to its physical row
+group. The layer needs the lifetime state even with retention off, so
+it builds the lifetime plan then too (an immortal one: its decay is an
+identity). Identity shifts with no worn rows reproduce the run without
+the layer bit for bit.
+
 With ``soft_error_ber > 0`` every write of the plan is followed by the
 radiation-upset hook (the hardened driver shields sign and exponent);
 strikes land in ``WriteStats.soft_strikes``. A prefix-linked admission
@@ -53,7 +64,8 @@ from repro_torch.core.energy_model import (StepEnergyMeter, add_slot_stats,
 from repro_torch.core.extent_table import QualityController
 from repro_torch.core.priority import Priority
 from repro_torch.device import resolve_device
-from repro_torch.memory import WritePlan, WriteStats, default_backend
+from repro_torch.memory import (AddressSpec, WritePlan, WriteStats,
+                                default_backend)
 from repro_torch.memory.plan import BATCH_AXIS
 from repro_torch.models import ModelApi, get_model
 from repro_torch.reliability import LifetimePlan, scrub_tree
@@ -83,6 +95,15 @@ class ServeConfig:
     prefix_cache: bool = False
     prefix_chunk: int = 8
     prefix_table_size: int = 256
+    #: physical addressing (memory.address): "rotate" turns on the
+    #: wear-leveling remap (the scheduler rotates the logical -> physical
+    #: column map when hot-row wear concentrates); endurance_budget > 0
+    #: the stuck-at failure model (row groups whose wear reaches it stop
+    #: accepting writes). Either turns the address layer on, in row
+    #: groups of remap_group_cols ring columns
+    wear_policy: str = "none"
+    endurance_budget: int = 0
+    remap_group_cols: int = 8
 
 
 def _row_mask(active: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -116,15 +137,23 @@ class ServingEngine:
         self.controller = QualityController()
         self.backend = serve_cfg.backend or default_backend(self.device)
         cache_like = self.api.init_cache(1, serve_cfg.max_seq, "meta")
+        self.wear = (serve_cfg.wear_policy != "none"
+                     or serve_cfg.endurance_budget > 0)
         self.plan = WritePlan.for_tree(
             cache_like, device=self.device, backend=self.backend,
             axes=self.api.cache_axes(),
             soft_error_ber=serve_cfg.soft_error_ber,
-            soft_error_hardened=serve_cfg.soft_error_hardened)
+            soft_error_hardened=serve_cfg.soft_error_hardened,
+            address_spec=AddressSpec(
+                group_cols=serve_cfg.remap_group_cols,
+                endurance_budget=serve_cfg.endurance_budget)
+            if self.wear else None)
         # per-(leaf, floor, ambient) decay thresholds resolved once; an
-        # ambient schedule swaps them between bursts
+        # ambient schedule swaps them between bursts. The wear layer
+        # needs the lifetime state (it carries the row-group counters):
+        # at retention_scale 0 that plan is immortal
         self.life_plan = None
-        if serve_cfg.retention_scale > 0.0:
+        if serve_cfg.retention_scale > 0.0 or self.wear:
             self.life_plan = LifetimePlan.for_tree(
                 cache_like, self.plan, ambient_k=serve_cfg.ambient_k,
                 dwell_s=serve_cfg.retention_scale)
@@ -138,6 +167,11 @@ class ServingEngine:
         valid with retention on."""
         assert self.life_plan is not None, "retention_scale == 0"
         return self.life_plan.vectors_for(floor, ambient_k=ambient_k)
+
+    def remap_cost(self, tree: Any) -> Tuple[float, int]:
+        """Host constants (energy_pj, bits) of ONE wear-leveling rotation
+        (``WritePlan.migration_cost``)."""
+        return self.plan.migration_cost(tree)
 
     def prompt_len(self, batch: Dict[str, torch.Tensor]) -> int:
         return self.api.prompt_len(batch)
@@ -178,12 +212,14 @@ class ServingEngine:
         return T.unflatten(list(self.plan.paths), out)
 
     def burst(self, params, tok, cache, pos, key: np.ndarray, acc,
-              slot_acc, active, vectors, life=None, rvec=None, *, n: int):
+              slot_acc, active, vectors, life=None, rvec=None, shifts=None,
+              *, n: int):
         """``n`` fused decode steps. Inactive rows keep their cache bits,
         position and token. ``life``/``rvec`` (the lifetime state and the
-        decay thresholds) are required with retention on and ignored
-        otherwise. Returns (tok, cache, pos, key, acc, slot_acc, life,
-        tokens (n, B))."""
+        decay thresholds) are required with retention or wear on and
+        ignored otherwise; ``shifts`` (the (L,) remap shifts) with wear
+        on. Returns (tok, cache, pos, key, acc, slot_acc, life, tokens
+        (n, B))."""
         retention = self.life_plan is not None
         act_i = active.to(pos.dtype)
         toks = []
@@ -195,8 +231,17 @@ class ServingEngine:
                     params, tok, cache, pos, self.scfg.max_seq)
                 new_cache = mask_rows(new_cache, cache, active)
                 if self.scfg.extent_enabled:
+                    addr = None
+                    if self.wear:
+                        # the column's address maps through the shifts to
+                        # its row group; worn groups are stuck-at (the map
+                        # derives from the carried counters, on the card)
+                        addr = (shifts, self.life_plan.worn_groups(life))
                     new_cache, st = self.plan.write_columns(
-                        k_write, cache, new_cache, pos, vectors)
+                        k_write, cache, new_cache, pos, vectors, addr=addr)
+                    if self.wear:
+                        life = self.life_plan.record_column_write(
+                            life, new_cache, pos, active, shifts)
                     acc = acc + st
                     slot_acc = add_slot_stats(slot_acc, st, active)
                 if retention:
@@ -212,11 +257,18 @@ class ServingEngine:
         return tok, cache, pos, key, acc, slot_acc, life, torch.stack(toks)
 
     def scrub(self, key: np.ndarray, cache, life, vectors, *,
-              enabled=None, cols: Optional[int] = None, cursor: int = 0):
+              enabled=None, cols: Optional[int] = None, cursor: int = 0,
+              shifts: Optional[torch.Tensor] = None):
         """One corrective scrub pass through the write path's backend
-        (``reliability.scrub_tree``). Returns (cache, life, WriteStats)."""
+        (``reliability.scrub_tree``). With wear on, ``shifts`` are the
+        remap shifts: the cursor walks physical rows and worn rows keep
+        their decay. Returns (cache, life, WriteStats)."""
+        addr = None
+        if self.wear:
+            addr = (shifts, self.life_plan.worn_groups(life))
         return scrub_tree(key, cache, life, self.life_plan, vectors,
-                          enabled=enabled, cols=cols, cursor=cursor)
+                          enabled=enabled, cols=cols, cursor=cursor,
+                          addr=addr)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return torch.argmax(logits, dim=-1)
@@ -238,14 +290,18 @@ class ServingEngine:
         active = torch.ones((B,), dtype=torch.bool, device=self.device)
         acc = WriteStats.zero(self.device)
         slot_acc = zero_slot_stats(B, self.device)
-        life = rvec = None
+        life = rvec = shifts = None
         if self.life_plan is not None:
             life = self.life_plan.init_state(cache)
             rvec = self.retention_vectors_for(Priority.LOW)
+        if self.wear:
+            # no scheduler to rotate the map: the identity permutation,
+            # bit-identical to wear off until a budget wears a group out
+            shifts = self.plan.identity_address().shifts
         if mnt > 1:
             _, cache, pos, key, acc, slot_acc, life, toks = self.burst(
                 self.params, tok, cache, pos, key, acc, slot_acc, active,
-                vectors, life, rvec, n=mnt - 1)
+                vectors, life, rvec, shifts, n=mnt - 1)
             tokens = torch.cat([tok[:, None], toks.t()], dim=1)
         else:
             tokens = tok[:, None]
@@ -260,7 +316,20 @@ class ServingEngine:
                 "ambient_k": self.scfg.ambient_k,
                 "dwell_s_per_step": self.scfg.retention_scale,
                 "flips": int(flips), "decayed_bits": int(decayed)}
+        if self.wear:
+            report["wear"] = self.wear_report(life)
         return tokens, report
+
+    def wear_report(self, life) -> Dict[str, Any]:
+        """The row-group wear summary of ``life`` (one host read)."""
+        worn = self.life_plan.worn_groups(life)
+        top, n_worn = torch.stack([
+            life.row_wear().max(),
+            torch.zeros_like(life.step) if worn is None
+            else worn.sum()]).tolist()
+        return {"max_group_wear": int(top), "worn_groups": int(n_worn),
+                "endurance_budget": self.scfg.endurance_budget,
+                "group_cols": self.scfg.remap_group_cols}
 
 
 @contextlib.contextmanager

@@ -25,7 +25,22 @@ resident columns into the old rows and writes with those columns
 aliased; linked slots inherit the owner's decay record, and the report
 gains the ``kv_prefix_cow`` stream and a ``prefix`` section.
 
-Wear, telemetry and sharding are later slices.
+With the addressing layer on (a wear policy or an endurance budget on
+the engine) the scheduler owns the run's ``AddressState``: bursts and
+scrub passes take its remap shifts as device operands, and every
+``check_interval`` steps one wear checkpoint reads the (L, G) row-group
+counters and the per-slot placement scores in one transfer — the one
+sync the layer adds — and asks the wear policy whether to rotate. A
+rotation advances the shifts and books the start-gap migration write to
+the ``kv_remap`` stream and its row re-writes to the wear counters.
+HIGH-quality admissions are steered to slots with the lowest scores of
+the last checkpoint; the prefix cache's linked admissions and
+copy-on-writes book their column drives as wear (prefix-off runs book
+decode columns only, as the reference does). ``wear_state()`` and
+``run(..., wear_state=)`` carry the map and the counters across runs.
+The report gains the ``kv_remap`` stream and a ``wear`` section.
+
+Telemetry and sharding are later slices.
 """
 from __future__ import annotations
 
@@ -39,7 +54,7 @@ import torch
 from repro_torch import rng
 from repro_torch.core.energy_model import StepEnergyMeter
 from repro_torch.core.priority import Priority
-from repro_torch.memory import WriteStats, rng_streams
+from repro_torch.memory import AddressState, WriteStats, rng_streams
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.prefix import PrefixCache, PrefixConfig, PrefixMatch
 from repro_torch.serve.slots import SlotPool
@@ -122,14 +137,17 @@ class ContinuousScheduler:
     def __init__(self, engine: ServingEngine, capacity: int,
                  scrub_policy: Optional[Any] = None,
                  ambient_schedule: Optional[Sequence[Tuple[int, float]]]
-                 = None):
+                 = None,
+                 wear_policy: Optional[Any] = None):
         assert capacity >= 1
         self.eng = engine
         self.scrub_policy = scrub_policy
+        self.wear_policy = wear_policy
         #: piecewise-constant (step, kelvin) ambient overrides
         self.ambient_schedule = (sorted(ambient_schedule)
                                  if ambient_schedule else None)
         self.life = None  # LifetimeState, owned per run()
+        self.addr: Optional[AddressState] = None  # remap shifts, per run()
         self.pool = SlotPool(engine.api, capacity, engine.scfg.max_seq,
                              engine.device)
         #: None = prefix cache off: every admission takes the plain path
@@ -185,12 +203,18 @@ class ContinuousScheduler:
         """Copy-on-write detach of every linker of ``owner``: each
         linker's columns are now really driven, booked at the price the
         link was credited (``WritePlan.alias_saving``)."""
-        for _, cols in self.pool.cow_detach(owner):
+        for linker, cols in self.pool.cow_detach(owner):
             pj, bits = self.eng.plan.alias_saving(self.pool.cache, cols)
             self._acc_cow = self._acc_cow + WriteStats.for_bits(
                 bits, self.eng.device, energy_pj=torch.tensor(
                     pj, dtype=torch.float32, device=self.eng.device))
             self._cow_events += 1
+            if self.eng.wear:
+                # the detached linker's columns are now its own drives
+                self.life = self.eng.life_plan.record_admission_write(
+                    self.life, self.pool.cache, self.pool.index([linker]),
+                    self.pool.index([0]), self.pool.index([cols]),
+                    self.addr.shifts)
 
     def _make_room(self, n: int, matches: List[Optional[PrefixMatch]],
                    exclude: set) -> None:
@@ -247,7 +271,16 @@ class ContinuousScheduler:
                 matches, sigs = self._resolve_prefix(group)
                 exclude = {m.slot for m in matches if m is not None}
                 self._make_room(len(group), matches, exclude)
-            ids = self.pool.alloc(len(group), exclude=sorted(exclude))
+            # wear-aware admission: HIGH-quality requests steer away from
+            # slots backed by worn or decayed rows (the last wear
+            # checkpoint's scores, no read here); others keep the
+            # lowest-id order
+            scores = None
+            if (self._slot_scores_host is not None and max(
+                    self._level[r.rid] for r in group) >= Priority.HIGH):
+                scores = self._slot_scores_host
+            ids = self.pool.alloc(len(group), scores=scores,
+                                  exclude=sorted(exclude))
             vectors = self.eng.vectors_for_floor(
                 max(self._floor(), max(self._level[r.rid] for r in group)))
             batch = _stack_prompts(group)
@@ -282,6 +315,14 @@ class ContinuousScheduler:
                         self.life, idx, self.pool.index(owner_ids), alias)
                     if linked else
                     self.eng.life_plan.reset_rows(self.life, idx))
+                if self.prefix is not None and self.eng.wear:
+                    # the prompt window's row drives, minus the linked
+                    # columns: shared columns wear once, at their owner
+                    self.life = self.eng.life_plan.record_admission_write(
+                        self.life, self.pool.cache, idx,
+                        alias if linked else self.pool.index(
+                            [0] * len(group)),
+                        self.pool.index(pos0), self.addr.shifts)
             if self.prefix is not None:
                 for j, r in enumerate(group):
                     m = matches[j]
@@ -346,16 +387,97 @@ class ContinuousScheduler:
         cols = policy.cols_per_pass or None
         k = rng.fold_in(key, rng_streams.SCHEDULER_SCRUB_PASS_OFFSET
                         + self._scrub_passes)
+        # with wear on the cursor walks physical rows through the current
+        # shifts, and worn rows keep their decay
         self.pool.cache, self.life, st = eng.scrub(
             k, self.pool.cache, self.life,
             eng.vectors_for_floor(Priority(floor)), enabled=enabled,
-            cols=cols, cursor=self._scrub_cursor)
+            cols=cols, cursor=self._scrub_cursor,
+            shifts=None if self.addr is None else self.addr.shifts)
         self._acc_scrub = self._acc_scrub + st
         policy.record(clock)
         self._scrub_passes += 1
         if cols:
             self._scrub_cursor = (self._scrub_cursor + cols) % \
                 eng.scfg.max_seq
+
+    # ------------------------------------------------------- wear leveling
+    def _remap_stats(self) -> WriteStats:
+        """One rotation's migration write as a WriteStats increment (host
+        constants resolved once per run: ``ServingEngine.remap_cost``)."""
+        if self._remap_cost is None:
+            self._remap_cost = self.eng.remap_cost(self.pool.cache)
+        pj, bits = self._remap_cost
+        return WriteStats.for_bits(
+            bits, self.eng.device, energy_pj=torch.tensor(
+                pj, dtype=torch.float32, device=self.eng.device))
+
+    def _maybe_wear_check(self, clock: int) -> None:
+        """Periodic wear checkpoint: read the (L, G) row-group counters
+        and the per-slot placement scores in one transfer (the one sync
+        of this layer, every ``check_interval`` steps), then ask the wear
+        policy whether to rotate. A rotation advances the shifts (device
+        operands of the bursts and scrubs), books the start-gap
+        migration to the ``kv_remap`` stream and its row re-writes to
+        the wear counters."""
+        eng, pol = self.eng, self.wear_policy
+        if not eng.wear:
+            return
+        interval = pol.check_interval if pol is not None else 16
+        if clock - self._last_wear_check < max(1, interval):
+            return
+        self._last_wear_check = clock
+        wear, self._slot_scores_host = self.read_wear()
+        if pol is not None and pol.plan_rotation(clock, wear):
+            self.addr = self.addr.rotate(self._rotatable, pol.rotate_step)
+            self._acc_remap = self._acc_remap + self._remap_stats()
+            # the migration's row re-writes wear the rows it lands on
+            self.life = eng.life_plan.record_migration(
+                self.life, self.pool.cache, self._gap_host,
+                pol.rotate_step)
+            self._gap_host += pol.rotate_step
+            pol.record(clock, wear)
+
+    def read_wear(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The wear checkpoint's one device read: the (L, G) row-group
+        wear (int64) and the (B,) slot placement scores (float32), as
+        host arrays, in one transfer (float64 holds both exactly)."""
+        wear = self.life.row_wear()
+        flat = torch.cat([
+            wear.reshape(-1).to(torch.float64),
+            self.eng.life_plan.slot_scores(
+                self.life, self.pool.cache).to(torch.float64)]).cpu().numpy()
+        return (flat[:wear.numel()].reshape(tuple(wear.shape))
+                .astype(np.int64), flat[wear.numel():].astype(np.float32))
+
+    def wear_state(self) -> Dict[str, torch.Tensor]:
+        """The physical address map and the row-group endurance counters
+        of the last run: feed it to ``run(..., wear_state=)`` so wear
+        (device damage) outlives one arrival stream."""
+        assert self.eng.wear and self.life is not None
+        return {"shifts": self.addr.shifts,
+                "rotations": self.addr.rotations,
+                "row_write_count": self.life.row_write_count,
+                "row_scrub_count": self.life.row_scrub_count}
+
+    def _restore_wear(self, wear_state: Dict[str, Any]) -> None:
+        """Install a ``wear_state()`` snapshot (tensors or arrays)."""
+        assert self.eng.wear and self.life is not None
+        dev = self.eng.device
+
+        def t(k):
+            return torch.as_tensor(wear_state[k]).to(dev, torch.int64)
+
+        self.addr = AddressState(shifts=t("shifts"),
+                                 rotations=t("rotations"))
+        self.life = dataclasses.replace(
+            self.life, row_write_count=t("row_write_count"),
+            row_scrub_count=t("row_scrub_count"))
+        self._gap_host = int(self.addr.shifts.max())
+        if self.wear_policy is not None:
+            # restored wear is not wear gained this run: without the
+            # rebase the first check would fire an unearned rotation
+            self.wear_policy.rebase(self.life.row_wear().cpu().numpy())
 
     def _materialize_tokens(self, rid: int,
                             memo: Dict[int, np.ndarray]) -> List[int]:
@@ -404,10 +526,12 @@ class ContinuousScheduler:
         self.pool.release(done)
         return len(done)
 
-    def run(self, requests) -> Dict[str, Any]:
+    def run(self, requests,
+            wear_state: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Serve an arrival stream (a request list or any arrival source,
         e.g. ``workload.replay.TraceSource``) to completion; returns the
-        serve report."""
+        serve report. ``wear_state`` (an earlier run's ``wear_state()``)
+        restores the address map and the row-group wear counters."""
         eng, pool = self.eng, self.pool
         pending = as_arrival_source(requests)
         key = rng.PRNGKey(eng.scfg.seed + 1)
@@ -416,6 +540,7 @@ class ContinuousScheduler:
         self._acc_decode = WriteStats.zero(eng.device)
         self._acc_scrub = WriteStats.zero(eng.device)
         self._acc_cow = WriteStats.zero(eng.device)
+        self._acc_remap = WriteStats.zero(eng.device)
         self._saved_pj = 0.0
         self._saved_bits = 0
         self._linked_admissions = self._linked_cols = self._cow_events = 0
@@ -425,8 +550,21 @@ class ContinuousScheduler:
         self._scrub_cursor = 0
         if self.scrub_policy is not None:
             self.scrub_policy.reset()  # the serving clock restarts at 0
+        self._last_wear_check = 0
+        self._slot_scores_host = None
+        self._remap_cost = None
+        self._gap_host = 0  # host mirror of the gap (the pre-rotation shift)
+        if self.wear_policy is not None:
+            self.wear_policy.reset()
         self.life = (eng.life_plan.init_state(pool.cache)
                      if eng.life_plan is not None else None)
+        self.addr = self._rotatable = None
+        if eng.wear:
+            self.addr = eng.plan.identity_address()
+            self._rotatable = torch.tensor(eng.plan.rotatable(),
+                                           device=eng.device)
+            if wear_state is not None:
+                self._restore_wear(wear_state)
         eng.controller.table.reset_stats()
         while pending or pool.busy():
             nxt = pending.next_arrival()
@@ -462,7 +600,8 @@ class ContinuousScheduler:
              pool.slot_acc, self.life, toks) = eng.burst(
                 eng.params, pool.tok, pool.cache, pool.pos, key,
                 self._acc_decode, pool.slot_acc, active, vectors,
-                self.life, rvec, n=n)
+                self.life, rvec,
+                None if self.addr is None else self.addr.shifts, n=n)
             for i in active_ids:
                 rid = pool.slot_req[i].rid
                 take = min(n, self._remaining[rid])
@@ -473,6 +612,7 @@ class ContinuousScheduler:
             bursts += 1
             self._complete(clock)
             self._maybe_scrub(clock, key)
+            self._maybe_wear_check(clock)
         pre_host = self._acc_prefill.host_dict()
         dec_host = self._acc_decode.host_dict()
         self.meter.add_stream("kv_prefill", pre_host)
@@ -480,6 +620,9 @@ class ContinuousScheduler:
         if self.life is not None:
             scrub_host = self._acc_scrub.host_dict()
             self.meter.add_stream("kv_scrub", scrub_host)
+        if eng.wear:
+            remap_host = self._acc_remap.host_dict()
+            self.meter.add_stream("kv_remap", remap_host)
         if self.prefix is not None:
             cow_host = self._acc_cow.host_dict()
             self.meter.add_stream("kv_prefix_cow", cow_host)
@@ -518,7 +661,8 @@ class ContinuousScheduler:
                                           self.life.decayed_bits()]).tolist()
             write_pj = pre_host["energy_pj"] + dec_host["energy_pj"]
             scrub_pj = scrub_host["energy_pj"]
-            remap_pj = 0.0  # wear leveling is a later slice
+            # the energy spent spreading the wear (0 with wear off)
+            remap_pj = remap_host["energy_pj"] if eng.wear else 0.0
             summary["lifetime"] = {
                 "ambient_k": eng.scfg.ambient_k,
                 "dwell_s_per_step": eng.scfg.retention_scale,
@@ -532,4 +676,11 @@ class ContinuousScheduler:
                 "scrub_policy": (self.scrub_policy.name
                                  if self.scrub_policy else "none"),
             }
+        if eng.wear:
+            pol = self.wear_policy
+            summary["wear"] = {
+                "policy": pol.name if pol else "none",
+                "rotations": pol.rotations if pol else 0,
+                "remap_energy_pj": remap_host["energy_pj"],
+                **eng.wear_report(self.life)}
         return summary

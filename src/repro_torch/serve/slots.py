@@ -1,7 +1,6 @@
 """Slot-pool KV cache: a fixed-capacity pool of per-request cache rows.
 
-The counterpart of ``repro.serve.slots.SlotPool`` without wear scores.
-The pool owns one device cache tree whose slot (batch) axis is the
+The counterpart of ``repro.serve.slots.SlotPool``. The pool owns one device cache tree whose slot (batch) axis is the
 capacity, plus the per-slot decode state the burst carries (token,
 position, attribution accumulators). The free list hands out the lowest
 ids, so a group admitted together occupies a contiguous prefix —
@@ -75,18 +74,26 @@ class SlotPool:
         return sum(1 for i in self._free
                    if self.col_refs[i] == 0 and i not in avoid)
 
-    def alloc(self, n: int, exclude: Sequence[int] = ()) -> List[int]:
-        """Claim the ``n`` lowest free slot ids that are neither
-        link-blocked nor in ``exclude``. With no links and no exclusions
-        (every prefix-off run) this is the plain free-list order."""
+    def alloc(self, n: int, scores: Optional[Sequence[float]] = None,
+              exclude: Sequence[int] = ()) -> List[int]:
+        """Claim ``n`` free slots that are neither link-blocked nor in
+        ``exclude``: the lowest ids, or with ``scores`` ((capacity,) host
+        floats, higher = worse home: the wear checkpoint's per-slot wear
+        and decay) the lowest by (score, id), so a uniform score vector
+        gives the default order exactly. With no links, no exclusions and
+        no scores (every prefix-off, wear-off run) this is the plain
+        free-list order."""
         avoid = {i for i in self._free if self.col_refs[i] > 0}
         avoid.update(exclude)
-        if not avoid:
+        if not avoid and scores is None:
             assert n <= len(self._free), (n, len(self._free))
             return [heapq.heappop(self._free) for _ in range(n)]
-        cand = sorted(i for i in self._free if i not in avoid)
+        cand = [i for i in self._free if i not in avoid]
         assert n <= len(cand), (n, len(cand), sorted(avoid))
-        ids = cand[:n]
+        if scores is None:
+            ids = sorted(cand)[:n]
+        else:
+            ids = sorted(cand, key=lambda i: (float(scores[i]), i))[:n]
         taken = set(ids)
         self._free = [i for i in self._free if i not in taken]
         heapq.heapify(self._free)
