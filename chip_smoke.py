@@ -53,6 +53,24 @@ each printed as one JSON line:
                     scrubbing every 8 steps, counted the same way; also
                     the ms per decode step with retention on, the decay's
                     ms per step and the ms per scrub pass;
+  7a. telemetry   — the ``full`` traffic with telemetry on, beside a run
+                    with it off: equal to ``full`` in tokens, flips,
+                    errors, energies and extent_write launches; drains
+                    equal events; every telemetry call runs under
+                    set_sync_debug_mode("error") (no device read), the
+                    finalize landing is one registry.land (timed); the
+                    Chrome trace validates against the schema fixture;
+                    tokens/s on and off;
+  7b. shards      — the ``retention`` traffic on a pool split over dies:
+                    shards 2 and 4 alike equal ``retention`` in every
+                    count, energy and launch; shards 2 with die 1 at
+                    400 K: die 1's extra die-masked scrub passes, one
+                    die-masked pass on the end state through the kernel
+                    equal to the twin's bit for bit (timed, its kernel
+                    against the 16 B a lane bound), the decay's ms per
+                    step with per-slot rows against uniform ones; and
+                    without scrubbing, die 0's masks, decayed bits and
+                    tokens equal the alike run's while die 1 decays more;
   8. local_attention_kernel
                   — the local_attention kernel against its plain PyTorch
                     version on the card, every case of att_cases():
@@ -153,11 +171,12 @@ each printed as one JSON line:
 
 They run in the order build, kernel, scrub_kernel,
 local_attention_kernel, kv_quant_kernel, rng_device, reduced,
-reduced_hybrid, full, retention, oracle, prefix, soft_errors, wear,
-hybrid; then nvidia-smi's line again and the kernels line, where the
-extent_write and scrub entries add their launches on each path
-(``launches_by_path``) and scrub's the windowed pass
-(``at.window_through_rotation``).
+reduced_hybrid, full, retention, telemetry, shards, oracle, prefix,
+soft_errors, wear, hybrid; then nvidia-smi's line again and the kernels
+line, where the extent_write and scrub entries add their launches on
+each path (``launches_by_path``) and scrub's the windowed pass
+(``at.window_through_rotation``) and the die-masked pass
+(``at.die_masked``).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
 the script exits non-zero and prints no result; it also refuses to run
@@ -649,14 +668,16 @@ PROMPT_LEN_HYBRID = 3072
 
 
 def serve_full(eng, prompt_len, scrub_policy=None, shared=0,
-               wear_policy=None, lost_bits=None):
+               wear_policy=None, lost_bits=None, telemetry=None,
+               die_ambients=None):
     """Drive a path once at full width: the 8 requests through the
     continuous scheduler, every burst under
     ``set_sync_debug_mode("error")``; checks the tokens and the ledger.
     ``shared`` > 0 makes the first ``shared`` tokens of every prompt one
     common system prompt (numpy, seed 1234). ``lost_bits`` (a callable
     run after the serve) counts the errors stuck-at rows booked, which
-    the BER check leaves out: it holds the driver. The caller sets the launch
+    the BER check leaves out: it holds the driver. ``telemetry`` and
+    ``die_ambients`` go to the scheduler. The caller sets the launch
     counts to 0 just before and reads them just after. Returns (report,
     scheduler, wall seconds)."""
     import numpy as np
@@ -676,7 +697,8 @@ def serve_full(eng, prompt_len, scrub_policy=None, shared=0,
         app_id="chat" if i % 2 else "batch") for i, t in enumerate(toks)]
     sch = ContinuousScheduler(eng, capacity=CAPACITY,
                               scrub_policy=scrub_policy,
-                              wear_policy=wear_policy)
+                              wear_policy=wear_policy, telemetry=telemetry,
+                              die_ambients=die_ambients)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -797,7 +819,318 @@ def phase_retention(device, eng_full):
           "decay_ms_per_step": decay_ms, "scrub_ms_per_pass": scrub_ms,
           "peak_mem_bytes": peak, "bursts_sync_free": True,
           "launches": launches, **lt, "ok": True})
-    return launches["scrub"], sch
+    return launches, sch, rep
+
+
+# ---------------------------------------------------------------------------
+# telemetry and sharded dies
+# ---------------------------------------------------------------------------
+
+TIMELINE_SCHEMA = ROOT / "tests" / "fixtures" / "timeline.schema.json"
+
+
+@contextlib.contextmanager
+def telemetry_probe(tele):
+    """While inside, every recording call of ``tele`` (``event``, the
+    tracer's ``begin``/``complete``/``end``, the instruments' host ops
+    and ``drain``) runs under ``set_sync_debug_mode("error")``, so a
+    device read in any of them raises; and every ``registry.land`` (the
+    finalize landing) is counted, timed and its tensors counted."""
+    import torch
+    from repro_torch.telemetry import registry
+    out = {"land_ms": [], "landed": []}
+    land = registry.land
+
+    def timed_land(refs):
+        t0 = time.perf_counter()
+        landed = land(refs)
+        out["land_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["landed"].append(len(landed))
+        return landed
+
+    def sync_free(fn):
+        def call(*a, **k):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        return call
+
+    for obj, names in ((tele, ("event",)),
+                       (tele.tracer, ("begin", "complete", "end")),
+                       (tele.instruments, ("inc", "set", "observe",
+                                           "drain"))):
+        for n in names:
+            setattr(obj, n, sync_free(getattr(obj, n)))
+    registry.land = timed_land
+    try:
+        yield out
+    finally:
+        registry.land = land
+
+
+def same_run(rep, base, fields=("requests", "streams", "total")):
+    """The report sections that must be equal, bit for bit, between two
+    runs of one traffic (the extent table's hit counts are left out: the
+    engine's table keeps its entries across runs)."""
+    return all(rep[f] == base[f] for f in fields)
+
+
+def phase_telemetry(device, eng_full, full_rep, full_launches):
+    """The ``full`` traffic with telemetry on, beside one run with it off:
+    the on run equals ``full`` in tokens, flips, errors, energies and the
+    164 extent_write launches; drains equal events; no telemetry call
+    reads the device (each runs under ``set_sync_debug_mode("error")``,
+    as every burst does) and finalize lands everything through one
+    ``registry.land``; the Chrome trace validates against
+    tests/fixtures/timeline.schema.json. Returns the on run's launches."""
+    import collections
+    import tempfile
+    from repro_torch.telemetry import (Telemetry, validate_timeline,
+                                       write_timeline)
+    reset_launches()
+    rep_off, _, wall_off = serve_full(eng_full, PROMPT_LEN)
+    launches_off = read_launches()
+    tele = Telemetry()
+    with telemetry_probe(tele) as probe:
+        reset_launches()
+        rep, sch, wall_on = serve_full(eng_full, PROMPT_LEN, telemetry=tele)
+        launches = read_launches()
+    snap = rep.pop("telemetry")
+    if not (same_run(rep, full_rep) and same_run(rep_off, full_rep)
+            and launches == launches_off
+            and launches["extent_write"] == full_launches):
+        raise AssertionError(f"telemetry on differs from off or from full: "
+                             f"launches {launches} / {launches_off}")
+    spans = collections.Counter(s["name"] for s in snap["spans_detail"])
+    roots = [s for s in snap["spans_detail"] if s["cat"] == "request"
+             and s["parent"] is None]
+    problems = tele.tracer.validate()
+    if not (snap["metrics"]["drains"] == snap["events"] > 0
+            and snap["drains_per_event"] == 1.0
+            and len(probe["land_ms"]) == 1 and probe["landed"][0] > 0
+            and len(roots) == N_REQ and not problems
+            and spans["burst"] == rep["bursts"]):
+        raise AssertionError(f"telemetry: {snap['events']} events, "
+                             f"{snap['metrics']['drains']} drains, lands "
+                             f"{probe}, spans {dict(spans)}, {problems}")
+    with tempfile.TemporaryDirectory() as d:
+        path = write_timeline(snap, Path(d) / "timeline.json")
+        timeline_bytes = path.stat().st_size
+        doc = json.loads(path.read_text())
+    validate_timeline(doc, TIMELINE_SCHEMA)
+    c = snap["metrics"]["counters"]
+    emit({"phase": "telemetry", "arch": eng_full.cfg.name,
+          "events": snap["events"], "drains": snap["metrics"]["drains"],
+          "drains_per_event": snap["drains_per_event"],
+          "spans": snap["spans"], "spans_by_name": dict(spans),
+          "finalize_land_calls": len(probe["land_ms"]),
+          "finalize_land_ms": probe["land_ms"][0],
+          "finalize_landed_tensors": probe["landed"][0],
+          "timeline_events": len(doc["traceEvents"]),
+          "timeline_bytes": timeline_bytes, "timeline_valid": True,
+          "serve_decode_energy_pj_total": c["serve_decode_energy_pj_total"],
+          "serve_flips_total": c["serve_flips_total"],
+          "tokens_per_s_on": N_REQ * NEW_TOKENS / wall_on,
+          "tokens_per_s_off": N_REQ * NEW_TOKENS / wall_off,
+          "wall_s_on": wall_on, "wall_s_off": wall_off,
+          "launches": launches, "equals_full": True,
+          "bursts_sync_free": True, "ok": True})
+    return launches
+
+
+#: the hot die's ambient (kelvin) over the retention run's 350 K
+HOT_DIE_K = 400.0
+
+
+def die_masked_lanes(sch, die, vecs):
+    """The lanes a die-masked whole-leaf pass hands the kernel: each K and
+    V leaf with the mask bits of every slot outside ``die`` held out."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.kernels.extent_write import ops
+    keep = sch.mesh.slot_mask(die, sch.eng.device).reshape(1, -1, 1, 1, 1)
+    return [(ops.to_lanes(x), ops.to_lanes(torch.where(
+        keep, m, torch.zeros_like(m))), (v.thr01, v.thr10, v.le01, v.le10))
+        for x, m, v in zip(T.leaves(sch.pool.cache), sch.life.masks, vecs)
+        if m is not None]
+
+
+def phase_shards(device, eng_full, ret_rep, ret_launches):
+    """The ``retention`` traffic (350 K, whole-leaf scrubs every 8 steps)
+    on a pool split over dies: (a) shards 2 and 4, alike: every count,
+    energy and launch equals ``retention``'s 1-die run; (b) shards 2
+    with die 1 at 400 K: die 1 gets an extra die-masked pass per pass;
+    on the run's end state one die-masked pass through the kernel equals
+    the same pass through the twin (``lanes_ref``) bit for bit, and is
+    timed with its kernel against the 16 B a lane bound, and the decay's
+    ms per step with per-slot threshold rows against the uniform one;
+    (c) without scrubbing, shards 2 alike and with die 1 at 400 K: die
+    0's decay masks, decayed bits and requests' tokens are the alike
+    run's, die 1 decays more. Returns (launches by run, the die-masked
+    timing entry)."""
+    import dataclasses
+    import torch
+    from repro_torch import rng
+    from repro_torch import tree as T
+    from repro_torch.core.priority import Priority, int_type
+    from repro_torch.memory.plan import BATCH_AXIS
+    from repro_torch.reliability import make_scrub_policy
+    from repro_torch.serve import ServingEngine
+
+    def engine(shards, **kw):
+        return ServingEngine(eng_full.cfg, dataclasses.replace(
+            eng_full.scfg, retention_scale=1000.0, ambient_k=350.0,
+            shards=shards, **kw), eng_full.params, device=device)
+
+    def run(eng, scrub=True, die_ambients=None):
+        reset_launches()
+        rep, sch, wall = serve_full(
+            eng, PROMPT_LEN, make_scrub_policy("periodic", interval=8)
+            if scrub else None, die_ambients=die_ambients)
+        launches = read_launches()
+        check_write_launches(launches, rep)
+        return rep, sch, wall, launches
+
+    def dies(rep, key):
+        return [d[key] for d in rep["sharding"]["dies"]]
+
+    runs, launches_by = {}, {}
+    # (a) alike dies are the 1-die run
+    for n in (2, 4):
+        rep, sch, wall, launches = run(engine(n))
+        lt = rep["lifetime"]
+        if not (same_run(rep, ret_rep, ("requests", "streams", "total",
+                                        "lifetime"))
+                and launches == ret_launches
+                and dies(rep, "scrub_passes") == [lt["scrub_passes"]] * n
+                and sum(dies(rep, "decayed_bits"))
+                == lt["residual_decayed_bits"]):
+            raise AssertionError(f"shards {n} differ from 1 die: launches "
+                                 f"{launches} / {ret_launches}, "
+                                 f"{rep['sharding']}")
+        runs[f"shards_{n}"] = {"wall_s": wall,
+                               "tokens_per_s": N_REQ * NEW_TOKENS / wall,
+                               "launches": launches,
+                               "dies": rep["sharding"]["dies"],
+                               "equals_retention": True}
+        launches_by[f"shards_{n}"] = launches
+        del sch
+        gc.collect()
+    # (b) die 1 hot, scrubbing
+    eng = engine(2)
+    rep, sch, wall, launches = run(eng, die_ambients={1: HOT_DIE_K})
+    passes, lt = dies(rep, "scrub_passes"), rep["lifetime"]
+    if not (passes[1] == 2 * passes[0] > 0
+            and lt["scrub_passes"] == passes[1]
+            and launches["scrub"] == 2 * lt["scrub_passes"]):
+        raise AssertionError(f"hot die 1: passes {passes}, launches "
+                             f"{launches}, {lt}")
+    runs["hot_die_scrub"] = {"wall_s": wall,
+                             "tokens_per_s": N_REQ * NEW_TOKENS / wall,
+                             "launches": launches,
+                             "dies": rep["sharding"]["dies"],
+                             "lifetime": lt}
+    launches_by["hot_die_scrub"] = launches
+    # one die-masked pass on the end state, kernel against twin
+    key = rng.PRNGKey(8)
+    mask = sch.mesh.slot_mask(1, device)
+    twin = ServingEngine(eng.cfg, dataclasses.replace(
+        eng.scfg, backend="lanes_ref"), eng.params, device=device)
+    vec = eng.vectors_for_floor(Priority.LOW)
+    with uncounted("scrub"):
+        c_k, l_k, st_k = eng.scrub(key, sch.pool.cache, sch.life, vec,
+                                   slot_mask=mask)
+    c_r, l_r, st_r = twin.scrub(key, sch.pool.cache, sch.life,
+                                twin.vectors_for_floor(Priority.LOW),
+                                slot_mask=mask)
+    h_k, h_r = st_k.host_dict(), st_r.host_dict()
+    out0 = [slice(None)] * 5
+    out0[BATCH_AXIS] = slice(0, sch.mesh.slots_per_die)
+
+    def bits(t):
+        return t.view(int_type(t.dtype)) if t.is_floating_point() else t
+
+    exact = (all(torch.equal(bits(a), bits(b)) for a, b in zip(
+        T.leaves(c_k), T.leaves(c_r)))
+        and all(torch.equal(a, b) for a, b in zip(l_k.masks, l_r.masks)
+                if a is not None)
+        and all(torch.equal(a[tuple(out0)], b[tuple(out0)])
+                for a, b in zip(l_k.masks, sch.life.masks) if a is not None)
+        and all(h_k[f] == h_r[f] for f in ("flips01", "flips10",
+                                           "bit_errors", "bits_total"))
+        and math.isclose(h_k["energy_pj"], h_r["energy_pj"],
+                         rel_tol=RTOL_ENERGY))
+    if not exact:
+        raise AssertionError(f"die-masked pass: kernel {h_k}, twin {h_r}")
+    with uncounted("scrub"):
+        pass_ms = cuda_ms(lambda: eng.scrub(key, sch.pool.cache, sch.life,
+                                            vec, slot_mask=mask),
+                          iters=10, warmup=2)
+    leaf = T.leaves(sch.pool.cache)[-1]
+    masked = time_scrubs(
+        f"whole leaf {tuple(leaf.shape)} {str(leaf.dtype)[6:]}, die 1's "
+        f"slots of {sch.mesh.n_dies} at {HOT_DIE_K:.0f} K (the other "
+        f"die's mask held out), end-of-run decay masks",
+        die_masked_lanes(sch, 1, vec))
+    masked.update({"pass_ms": pass_ms, "pass_bits_rewritten":
+                   h_k["bits_written"], "pass_equals_twin": True,
+                   "ms_per_lane": masked["ms"] / masked["lanes_per_launch"],
+                   "bound_ms_per_lane": masked["bound_ms"]
+                   / masked["lanes_per_launch"]})
+    # the decay with per-slot rows against the uniform thresholds
+    rows = eng.retention_vectors_for_dies(Priority.LOW, (350.0, HOT_DIE_K),
+                                          sch.mesh.slots_per_die)
+    flat = eng.retention_vectors_for(Priority.LOW)
+    decay_rows_ms = cuda_ms(lambda: eng.life_plan.advance(
+        key, sch.pool.cache, sch.life, rows), iters=10, warmup=2)
+    decay_uniform_ms = cuda_ms(lambda: eng.life_plan.advance(
+        key, sch.pool.cache, sch.life, flat), iters=10, warmup=2)
+    live = [int(r.host.any(0).sum()) if r is not None else None
+            for r in rows]
+    live_flat = [int((v > 0).sum()) if v is not None else None
+                 for v in flat]
+    del sch, twin, c_k, c_r, l_k, l_r
+    gc.collect()
+    # (c) no scrubbing: the decay record alone
+    rep_u, sch_u, _, launches_u = run(engine(2), scrub=False)
+    rep_h, sch_h, _, launches_h = run(engine(2), scrub=False,
+                                      die_ambients={1: HOT_DIE_K})
+    d_u, d_h = dies(rep_u, "decayed_bits"), dies(rep_h, "decayed_bits")
+    die0_masks = all(torch.equal(a[tuple(out0)], b[tuple(out0)])
+                     for a, b in zip(sch_h.life.masks, sch_u.life.masks)
+                     if a is not None)
+    die0_tokens = all(rep_h["requests"][i]["tokens"]
+                      == rep_u["requests"][i]["tokens"]
+                      for i in rep_u["requests"]
+                      if rep_u["requests"][i]["slot"]
+                      < sch_u.mesh.slots_per_die)
+    if not (d_h[0] == d_u[0] and d_h[1] > d_u[1] and die0_masks
+            and die0_tokens):
+        raise AssertionError(f"heating die 1 moved die 0: decayed "
+                             f"{d_h} against {d_u}, masks {die0_masks}, "
+                             f"tokens {die0_tokens}")
+    runs["no_scrub"] = {"decayed_bits_alike": d_u, "decayed_bits_hot": d_h,
+                        "retention_flips_alike":
+                            rep_u["lifetime"]["retention_flips"],
+                        "retention_flips_hot":
+                            rep_h["lifetime"]["retention_flips"],
+                        "die0_masks_identical": True,
+                        "die0_tokens_identical": True}
+    launches_by["alike_no_scrub"] = launches_u
+    launches_by["hot_die_no_scrub"] = launches_h
+    del sch_u, sch_h
+    gc.collect()
+    emit({"phase": "shards", "arch": eng_full.cfg.name,
+          "hot_die_k": HOT_DIE_K, "ambient_k": 350.0, "scrub_interval": 8,
+          **runs, "die_masked_pass": masked,
+          "decay_ms_per_step_rows": decay_rows_ms,
+          "decay_ms_per_step_uniform": decay_uniform_ms,
+          "live_planes_rows": live, "live_planes_uniform": live_flat,
+          "bursts_sync_free": True, "ok": True})
+    return launches_by, masked
 
 
 # ---------------------------------------------------------------------------
@@ -2133,7 +2466,8 @@ def main() -> int:
     phase_reduced(device)
     phase_reduced_hybrid(device)
     launches, eng, sch, full_rep = phase_full(device)
-    s_launches, r_sch = phase_retention(device, eng)
+    r_launches, r_sch, ret_rep = phase_retention(device, eng)
+    s_launches = r_launches["scrub"]
     # the dense path's entries are timed on its own state, which is then
     # freed, so the hybrid phase's peak memory is its own
     entries = [extent_write_entry(launches, worst_abs, worst_rel, eng, sch,
@@ -2141,6 +2475,8 @@ def main() -> int:
                scrub_entry(s_launches, s_abs, s_rel, r_sch, device)]
     del sch, r_sch
     gc.collect()
+    t_launches = phase_telemetry(device, eng, full_rep, launches)
+    sh_launches, masked = phase_shards(device, eng, ret_rep, r_launches)
     phase_oracle(device, eng)
     phase_prefix(device, eng)
     phase_soft_errors(device, eng)
@@ -2148,11 +2484,15 @@ def main() -> int:
     # the wear runs' launches and the windowed scrub's times join the
     # entries of the kernels they drove
     entries[0]["launches_by_path"] = {
-        "full": launches, **{f"wear_{k}": v["extent_write"]
-                             for k, v in w_launches.items()}}
-    entries[1]["launches_by_path"] = {"retention": s_launches,
-                                      "wear_failure": w_scrub}
+        "full": launches, "telemetry": t_launches["extent_write"],
+        **{k: v["extent_write"] for k, v in sh_launches.items()},
+        **{f"wear_{k}": v["extent_write"] for k, v in w_launches.items()}}
+    entries[1]["launches_by_path"] = {
+        "retention": s_launches,
+        **{k: v["scrub"] for k, v in sh_launches.items()},
+        "wear_failure": w_scrub}
     entries[1]["at"]["window_through_rotation"] = window
+    entries[1]["at"]["die_masked"] = masked
     del eng
     gc.collect()
     torch.cuda.empty_cache()

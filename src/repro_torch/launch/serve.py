@@ -42,6 +42,22 @@ stream and the wear-leveling line:
 
   python -m repro_torch.launch.serve --wear-policy rotate \
       --remap-group-cols 4 --wear-check-interval 2 --hot-row-wear 2
+
+``--shards N`` splits the slot pool over N dies (``--capacity`` must
+divide evenly); any N is bit-identical to one die until ``--die-ambient
+DIE=KELVIN`` (repeatable) heats a die: its slots then decay at its
+temperature, it gets an extra die-masked scrub pass per pass, and
+HIGH-quality admissions steer away from it. The report adds a
+``sharding:`` section with a ledger line per die.
+
+``--metrics-out PATH`` (Prometheus text, or annotated JSON when PATH
+ends in ``.json``) and ``--trace-timeline PATH`` (Chrome trace-event
+JSON, for Perfetto; ``python -m repro_torch.telemetry PATH`` validates
+it) turn telemetry on; off, the run writes no file and is unchanged:
+
+  python -m repro_torch.launch.serve --capacity 4 --shards 2 \
+      --die-ambient 1=420 --retention-scale 1000 --scrub-policy periodic \
+      --metrics-out metrics.prom --trace-timeline timeline.json
 """
 from __future__ import annotations
 
@@ -57,7 +73,8 @@ from repro_torch.memory import available_backends
 from repro_torch.reliability import make_scrub_policy, make_wear_policy
 from repro_torch.serve import (ContinuousScheduler, ServeConfig,
                                ServingEngine, synthetic_requests)
-from repro_torch.telemetry import render_report
+from repro_torch.telemetry import (Telemetry, render_report, write_metrics,
+                                   write_timeline)
 from repro_torch.workload import TraceSource, load_trace
 
 
@@ -135,12 +152,38 @@ def main(argv=None):
     ap.add_argument("--hot-row-wear", type=int, default=16,
                     help="max-group wear since the last rotation that "
                          "arms the next one")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="STT-RAM dies the slot pool is split over "
+                         "(capacity must divide evenly; bit-identical to "
+                         "1 until a die's state diverges)")
+    ap.add_argument("--die-ambient", action="append", default=[],
+                    metavar="DIE=KELVIN",
+                    help="one die's ambient temperature (repeats), e.g. "
+                         "--die-ambient 1=400")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write end-of-run metrics (Prometheus text, or "
+                         "annotated JSON when PATH ends in .json); turns "
+                         "telemetry on")
+    ap.add_argument("--trace-timeline", default=None, metavar="PATH",
+                    help="write the per-request span timeline as Chrome "
+                         "trace-event JSON; turns telemetry on")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+
+    telemetry = (Telemetry() if args.metrics_out or args.trace_timeline
+                 else None)
+
+    def export_telemetry(snapshot) -> None:
+        if args.metrics_out:
+            print(f"metrics -> {write_metrics(snapshot, args.metrics_out)}")
+        if args.trace_timeline:
+            p = write_timeline(snapshot, args.trace_timeline)
+            print(f"timeline -> {p} (open in https://ui.perfetto.dev "
+                  f"or chrome://tracing)")
 
     retention_scale = args.retention_scale
     if args.scrub_policy != "none" and retention_scale == 0.0:
@@ -159,7 +202,8 @@ def main(argv=None):
                            prefix_table_size=args.prefix_table_size,
                            wear_policy=args.wear_policy,
                            endurance_budget=args.endurance_budget,
-                           remap_group_cols=args.remap_group_cols)
+                           remap_group_cols=args.remap_group_cols,
+                           shards=args.shards)
 
     soft = dict(soft_error_ber=args.soft_error_ber,
                 soft_error_hardened=not args.soft_error_unhardened)
@@ -170,7 +214,8 @@ def main(argv=None):
         eng = ServingEngine(cfg, serve_cfg(args.prompt_len + args.new_tokens,
                                            args.new_tokens), device=device)
         out, report = eng.generate(
-            {"tokens": torch.from_numpy(toks).to(device)})
+            {"tokens": torch.from_numpy(toks).to(device)},
+            telemetry=telemetry)
         print(f"generated {tuple(out.shape)} tokens; first row: "
               f"{out[0, :8].tolist()}...")
         if not args.no_extent:
@@ -185,6 +230,8 @@ def main(argv=None):
                       f"BER {args.soft_error_ber:.1e} "
                       f"({'hardened' if hardened else 'unhardened'} "
                       f"driver)")
+        if telemetry is not None:
+            export_telemetry(telemetry.snapshot())
         return
 
     if args.trace:
@@ -228,12 +275,20 @@ def main(argv=None):
             args.wear_policy, check_interval=args.wear_check_interval,
             rotate_step=args.remap_group_cols,
             hot_row_wear=args.hot_row_wear)
+    die_ambients = {}
+    for spec in args.die_ambient:
+        die, _, kelvin = spec.partition("=")
+        die_ambients[int(die)] = float(kelvin)
     report = ContinuousScheduler(eng, capacity=args.capacity,
                                  scrub_policy=scrub_policy,
-                                 wear_policy=wear_policy).run(reqs)
+                                 wear_policy=wear_policy,
+                                 telemetry=telemetry,
+                                 die_ambients=die_ambients).run(reqs)
     for line in render_report(report, backend=eng.backend,
                               show_extent=not args.no_extent, **soft):
         print(line)
+    if telemetry is not None:
+        export_telemetry(report["telemetry"])
 
 
 if __name__ == "__main__":

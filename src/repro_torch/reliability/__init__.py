@@ -13,8 +13,10 @@
                    physical address map), consulted at the scheduler's
                    periodic wear checkpoints.
 
-The per-die state and the checkpoint integrity pass of
-``repro.reliability`` belong to later slices.
+Per-die decay thresholds (``LifetimePlan.vectors_for_dies``) and
+die-masked scrub passes (``scrub_tree(slot_mask=)``) serve a pool
+sharded over dies; the checkpoint integrity pass of
+``repro.reliability`` belongs to a later slice.
 """
 from repro_torch.reliability.lifetime import (  # noqa: F401
     MIN_P_STEP, RETENTION_DERATE, LifetimePlan, LifetimeState,

@@ -39,8 +39,15 @@ one unit per column write or scrubbed column, booked to the group the
 *rotated* address lands in (``repro_torch.memory.address``). Without an
 ``AddressSpec`` on the plan G is 1 and nothing books there.
 ``worn_groups`` turns the counters into the stuck-at map, on the device,
-inside the burst. The per-die vectors and the checkpoint integrity pass
-belong to later slices.
+inside the burst.
+
+A pool sharded over dies at different ambients decays each slot at its
+own die's temperature: ``vectors_for_dies`` gives per-slot threshold
+rows (``SlotThresholds``: host rows decide which planes are live, the
+same rows on the device are the compare operand, uploaded once per
+change of ambients). The hash stays over (seed, flat element, plane),
+so heating one die never moves another die's decay record. The
+checkpoint integrity pass belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -126,23 +133,52 @@ def _to_int_bits(v: torch.Tensor, nbits: int, dtype: torch.dtype
     return (v - ((v >> (nbits - 1)) << nbits)).to(dtype)
 
 
-def _decay_leaf(seed: int, x: torch.Tensor, thr: np.ndarray
+@dataclasses.dataclass(frozen=True, eq=False)
+class SlotThresholds:
+    """One leaf's per-slot decay thresholds (a die-sharded pool whose
+    dies sit at different ambients): ``host`` (B, nbits) uint32 rows,
+    from which the host decides which planes can decay at all, and
+    ``dev``, the same rows transposed to (nbits, B) int64 on the device,
+    the compare operand (uploaded once, outside the bursts)."""
+    host: np.ndarray
+    dev: torch.Tensor
+
+    @classmethod
+    def of(cls, rows: np.ndarray, device) -> "SlotThresholds":
+        rows.setflags(write=False)
+        return cls(host=rows, dev=torch.from_numpy(
+            rows.T.astype(np.int64)).to(device))
+
+    def any(self) -> bool:
+        return bool(self.host.any())
+
+
+def _decay_leaf(seed: int, x: torch.Tensor, thr
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sample retention flips on every stored bit of ``x``: counter hash
-    over (seed, flat element index, bit plane). Returns (decayed, flip
-    mask (``int_type`` view), n_flips int64). Planes with a zero
-    threshold are skipped; with all of them zero this is an identity."""
+    over (seed, flat element index, bit plane). ``thr`` is the (nbits,)
+    host thresholds of every slot, or a ``SlotThresholds`` whose rows
+    broadcast along the batch axis (each slot's bits against its own
+    die's thresholds). Returns (decayed, flip mask (``int_type`` view),
+    n_flips int64). Planes whose threshold is zero for every slot are
+    skipped (decided on the host); with all of them zero this is an
+    identity."""
     it = int_type(x.dtype)
     nbits = bits_of(x.dtype)
     base = (_elem_hash_base(x.numel(), x.device).reshape(x.shape)
             ^ (int(seed) & M32))
     strike = torch.zeros_like(base)
     flips = torch.zeros((), dtype=torch.int64, device=x.device)
+    rows = isinstance(thr, SlotThresholds)
+    if rows:
+        live = thr.host.any(axis=0)
+        bshape = [1] * x.dim()
+        bshape[BATCH_AXIS] = -1
     for b in range(nbits):
-        if thr[b] == 0:
+        if not (live[b] if rows else thr[b]):
             continue
         u = hash_u32(base ^ ((b * K_BIT) & M32))
-        hit = u < int(thr[b])
+        hit = u < (thr.dev[b].reshape(bshape) if rows else int(thr[b]))
         strike = strike | (hit.to(torch.int64) << b)
         flips = flips + hit.sum()
     mask = _to_int_bits(strike, nbits, it)
@@ -213,6 +249,8 @@ class LifetimePlan:
         self._approx = torch.tensor(
             [int(lvl is not None) for lvl in self.plan.leaf_levels],
             dtype=torch.int64, device=self.plan.device)
+        #: per-(floor, ambients, slots_per_die) SlotThresholds tuples
+        self._die_rows = {}
 
     # ------------------------------------------------------------- operands
     def vectors_for(self, floor: Priority = Priority.LOW,
@@ -228,6 +266,28 @@ class LifetimePlan:
             _retention_thresholds(dt, max(lvl, floor), t_k, self.dwell_s)
             if lvl is not None else None
             for dt, lvl in zip(self.leaf_dtypes, self.plan.leaf_levels))
+
+    def vectors_for_dies(self, floor: Priority, ambients: Sequence[float],
+                         slots_per_die: int) -> Tuple[Any, ...]:
+        """Per-leaf decay thresholds for a slot pool sharded over
+        ``len(ambients)`` dies of ``slots_per_die`` slots (die ``d`` owns
+        the slots from ``d * slots_per_die``). Uniform ambients return
+        ``vectors_for``'s (nbits,) thresholds unchanged; divergent ones
+        give each approximate leaf a ``SlotThresholds`` of per-slot rows,
+        built and uploaded once per (floor, ambients)."""
+        ts = tuple(float(t) for t in ambients)
+        if len(set(ts)) <= 1:
+            return self.vectors_for(floor, ambient_k=ts[0])
+        floor = Priority.coerce(floor)
+        key = (floor, ts, slots_per_die)
+        if key not in self._die_rows:
+            self._die_rows[key] = tuple(
+                None if lvl is None else SlotThresholds.of(np.repeat(
+                    np.stack([_retention_thresholds(
+                        dt, max(lvl, floor), t, self.dwell_s) for t in ts]),
+                    slots_per_die, axis=0), self.plan.device)
+                for dt, lvl in zip(self.leaf_dtypes, self.plan.leaf_levels))
+        return self._die_rows[key]
 
     # ---------------------------------------------------------------- state
     def init_state(self, tree: Any) -> LifetimeState:
@@ -383,15 +443,16 @@ class LifetimePlan:
 
     # -------------------------------------------------------------- advance
     def advance(self, key: np.ndarray, tree: Any, state: LifetimeState,
-                vectors: Optional[Sequence[Optional[np.ndarray]]] = None
+                vectors: Optional[Sequence[Any]] = None
                 ) -> Tuple[Any, LifetimeState]:
         """One decode step's dwell: sample decay on every stored bit of
         the approximate leaves, XOR the flips into the masks, bump the
         clock and the write counters (the step re-wrote the leaves before
-        dwelling). Reads nothing from the device. ``key`` is the step's
-        write key; leaf ``i`` folds ``RETENTION_OFFSET + i`` off it, so
-        the write and sampling schedule is the same with retention on or
-        off."""
+        dwelling). ``vectors`` holds per leaf (nbits,) thresholds or
+        per-slot ``SlotThresholds`` (``vectors_for_dies``). Reads nothing
+        from the device. ``key`` is the step's write key; leaf ``i``
+        folds ``RETENTION_OFFSET + i`` off it, so the write and sampling
+        schedule is the same with retention on or off."""
         if self.immortal:
             return tree, state
         if vectors is None:

@@ -24,9 +24,11 @@ keeps:
     wear-leveler rotated in between. Worn (stuck-at) rows cannot be
     re-driven: their decayed bits are taken out of the corrective mask
     (no energy, no flips) and stay in the residual. Scrubbed columns
-    book row-group scrub wear (``window_group_counts``).
-
-Die-masked passes (``slot_mask=``) belong to the sharding slice.
+    book row-group scrub wear (``window_group_counts``);
+  * ``slot_mask`` ((B,) bool) scopes a pass to some slot rows: the
+    sharded scheduler's extra passes over one hot die. Out-of-die slots
+    are held out like worn rows (no energy, decay kept in the residual)
+    and book no scrub wear.
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ def scrub_tree(key: np.ndarray, tree: Any, state: LifetimeState,
                enabled: Optional[Tuple[bool, ...]] = None,
                cols: Optional[int] = None, cursor: int = 0,
                addr: Optional[Tuple[torch.Tensor,
-                                    Optional[torch.Tensor]]] = None
+                                    Optional[torch.Tensor]]] = None,
+               slot_mask: Optional[torch.Tensor] = None
                ) -> Tuple[Any, LifetimeState, WriteStats]:
     """One scrub pass. ``vectors`` is the WRITE plan's per-leaf operand
     tuple (``WritePlan.vectors_for(floor)``): scrubs re-write at write
@@ -57,7 +60,9 @@ def scrub_tree(key: np.ndarray, tree: Any, state: LifetimeState,
     cursor is a physical row when ``addr`` carries remap shifts).
     ``addr`` is the addressing pair ``(shifts, worn)`` (see
     ``WritePlan.write``); identity shifts with no worn rows reproduce
-    the pass without it bit for bit.
+    the pass without it bit for bit. ``slot_mask`` ((B,) bool on the
+    device) limits the pass to the slots it selects; all-true is the
+    whole-pool pass.
 
     Returns (scrubbed tree, state', WriteStats): the scrubbed spans'
     masks become the residual masks, the per-leaf scrub counters (and,
@@ -104,9 +109,16 @@ def scrub_tree(key: np.ndarray, tree: Any, state: LifetimeState,
             stuck = A.worn_element_mask(
                 worn[i], shifts[i], w_mask.shape, ax, BATCH_AXIS, spec,
                 cols=idx, n_cols=None if ax is None else leaf.shape[ax])
-            # worn rows cannot be re-driven: their decayed bits are held
-            # out of the corrective write (zero-mask bits are free) and
-            # stay decayed in the residual
+        if slot_mask is not None:
+            # out-of-die slots are held out of this pass like worn rows
+            shape = [1] * w_mask.dim()
+            shape[BATCH_AXIS] = -1
+            excl = ~slot_mask.reshape(shape)
+            stuck = excl if stuck is None else stuck | excl
+        if stuck is not None:
+            # rows that cannot (or must not) be re-driven: their decayed
+            # bits are held out of the corrective write (zero-mask bits
+            # are free) and stay decayed in the residual
             zero = torch.zeros_like(w_mask)
             held = torch.where(stuck, w_mask, zero)
             w_mask = torch.where(stuck, zero, w_mask)
@@ -125,14 +137,24 @@ def scrub_tree(key: np.ndarray, tree: Any, state: LifetimeState,
         if spec is not None:
             # row-group scrub wear: one re-write per covered column per
             # slot row, in physical space
-            B = leaf.shape[BATCH_AXIS]
+            B, G = leaf.shape[BATCH_AXIS], row_scrub.shape[1]
             if ax is None:
-                row_scrub[i, :B] += 1
+                inc = torch.zeros((G,), dtype=torch.int64,
+                                  device=row_scrub.device)
+                inc[:B] = 1
             else:
-                row_scrub[i] += A.window_group_counts(
+                inc = A.window_group_counts(
                     cursor if windowed else 0,
                     cols if windowed else leaf.shape[ax], leaf.shape[ax],
-                    B, row_scrub.shape[1], spec, row_scrub.device)
+                    B, G, spec, row_scrub.device)
+            if slot_mask is not None:
+                # only the covered slots' groups (slot-major: group g
+                # backs slot g // gc)
+                gc = 1 if ax is None else spec.col_groups(leaf.shape[ax])
+                sl = torch.arange(G, device=inc.device) // gc
+                covered = slot_mask[sl.clamp(0, B - 1)] & (sl < B)
+                inc = torch.where(covered, inc, torch.zeros_like(inc))
+            row_scrub[i] += inc
     done = torch.tensor(scrubbed, dtype=torch.int64, device=plan.device)
     state2 = dataclasses.replace(
         state, masks=tuple(masks), scrub_count=state.scrub_count + done,
@@ -140,3 +162,15 @@ def scrub_tree(key: np.ndarray, tree: Any, state: LifetimeState,
         last_scrub_step=torch.where(done > 0, state.step,
                                     state.last_scrub_step))
     return T.unflatten(list(plan.paths), out), state2, acc
+
+
+def scrub_span_args(stats: WriteStats, policy, *, cols: int,
+                    floor, resident: Sequence[int]) -> dict:
+    """Telemetry attribution of one scrub pass's background span: the
+    policy, the window width, the floor the re-writes were driven at and
+    the co-resident requests. ``stats.energy_pj`` stays a device
+    reference: the tracer lands it at finalize, never here."""
+    return {**policy.describe(), "cols": int(cols or 0),
+            "floor": getattr(floor, "name", str(floor)),
+            "energy_pj": stats.energy_pj,
+            "resident": list(resident)}

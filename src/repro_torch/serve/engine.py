@@ -44,6 +44,11 @@ strikes land in ``WriteStats.soft_strikes``. A prefix-linked admission
 owners' resident columns into the old rows) runs the same split
 schedule and model prefill, and its write skips the linked columns.
 
+``generate(..., telemetry=)`` records the batch's span tree and one
+event (``repro_torch.telemetry``); ``ServeConfig.shards`` splits the
+scheduler's pool over dies, and ``retention_vectors_for_dies`` gives the
+per-slot decay thresholds of dies at different ambients.
+
 Lockstep contract (as in the reference): admitting a whole pool at once
 and decoding it reproduces ``generate`` on the same batch bit for bit.
 """
@@ -104,6 +109,12 @@ class ServeConfig:
     wear_policy: str = "none"
     endurance_budget: int = 0
     remap_group_cols: int = 8
+    #: sharded serving (repro_torch.sharding.DieMesh): the slot pool
+    #: spans this many independently aging dies, partitioned over the
+    #: slot axis (capacity must divide evenly). The burst stays one
+    #: full-pool loop: any count is bit-identical to 1 until per-die
+    #: state (ambients, wear) diverges
+    shards: int = 1
 
 
 def _row_mask(active: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -167,6 +178,16 @@ class ServingEngine:
         valid with retention on."""
         assert self.life_plan is not None, "retention_scale == 0"
         return self.life_plan.vectors_for(floor, ambient_k=ambient_k)
+
+    def retention_vectors_for_dies(self, floor: Priority,
+                                   ambients: Tuple[float, ...],
+                                   slots_per_die: int) -> Tuple:
+        """Per-die decay thresholds of a die-sharded pool
+        (``LifetimePlan.vectors_for_dies``): uniform ambients give the
+        pool-wide thresholds, divergent ones per-slot rows."""
+        assert self.life_plan is not None, "retention_scale == 0"
+        return self.life_plan.vectors_for_dies(floor, ambients,
+                                               slots_per_die)
 
     def remap_cost(self, tree: Any) -> Tuple[float, int]:
         """Host constants (energy_pj, bits) of ONE wear-leveling rotation
@@ -258,27 +279,33 @@ class ServingEngine:
 
     def scrub(self, key: np.ndarray, cache, life, vectors, *,
               enabled=None, cols: Optional[int] = None, cursor: int = 0,
-              shifts: Optional[torch.Tensor] = None):
+              shifts: Optional[torch.Tensor] = None,
+              slot_mask: Optional[torch.Tensor] = None):
         """One corrective scrub pass through the write path's backend
         (``reliability.scrub_tree``). With wear on, ``shifts`` are the
         remap shifts: the cursor walks physical rows and worn rows keep
-        their decay. Returns (cache, life, WriteStats)."""
+        their decay. ``slot_mask`` ((B,) bool) limits the pass to one
+        die's slots. Returns (cache, life, WriteStats)."""
         addr = None
         if self.wear:
             addr = (shifts, self.life_plan.worn_groups(life))
         return scrub_tree(key, cache, life, self.life_plan, vectors,
                           enabled=enabled, cols=cols, cursor=cursor,
-                          addr=addr)
+                          addr=addr, slot_mask=slot_mask)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return torch.argmax(logits, dim=-1)
 
     # ------------------------------------------------------------ generation
     def generate(self, batch: Dict[str, torch.Tensor],
-                 max_new_tokens: Optional[int] = None
+                 max_new_tokens: Optional[int] = None, *,
+                 telemetry: Optional[Any] = None
                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Prefill ``batch`` then decode one burst. Returns (tokens
-        (B, T_new), report); the stats cross to the host once, at the end."""
+        (B, T_new), report); the stats cross to the host once, at the end.
+        ``telemetry`` (a ``repro_torch.telemetry.Telemetry``) records one
+        ``generate[B=...]`` span with ``prefill`` and ``decode`` children
+        and one event."""
         mnt = max_new_tokens or self.scfg.max_new_tokens
         key = rng.PRNGKey(self.scfg.seed + 1)
         B = batch["tokens"].shape[0]
@@ -305,6 +332,25 @@ class ServingEngine:
             tokens = torch.cat([tok[:, None], toks.t()], dim=1)
         else:
             tokens = tok[:, None]
+        if telemetry is not None:
+            # the batch's spans on the serve lane and one drain at the
+            # end (the monolithic event); energies stay device refs
+            # until finalize
+            ins = telemetry.instruments
+            ins.bind("serve_prefill_energy_pj_total",
+                     lambda: pre_acc.energy_pj)
+            ins.bind("serve_decode_energy_pj_total", lambda: acc.energy_pj)
+            root = telemetry.tracer.begin(
+                f"generate[B={B}]", 0, track="batch", cat="request")
+            telemetry.tracer.complete(
+                "prefill", 0, 0, track="batch", parent=root,
+                energy_pj=pre_acc.energy_pj)
+            telemetry.tracer.complete(
+                "decode", 0, mnt - 1, track="batch", parent=root,
+                steps=mnt - 1, energy_pj=acc.energy_pj)
+            telemetry.tracer.end(root, mnt - 1)
+            telemetry.event(mnt - 1, serve_pool_occupancy=B,
+                            serve_queue_depth=0)
         if self.scfg.extent_enabled:
             self.meter.add_stream("kv_prefill", pre_acc.host_dict())
             self.meter.add_stream("kv_decode", acc.host_dict())

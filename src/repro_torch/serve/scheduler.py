@@ -40,7 +40,26 @@ decode columns only, as the reference does). ``wear_state()`` and
 ``run(..., wear_state=)`` carry the map and the counters across runs.
 The report gains the ``kv_remap`` stream and a ``wear`` section.
 
-Telemetry and sharding are later slices.
+With ``telemetry=`` (a ``repro_torch.telemetry.Telemetry``) the loop
+records the reference's spans and instruments at the same places: a
+request tree (queue, prefill, decode bursts) per request, the pool's
+burst spans, and scrub, wear-checkpoint, rotation and copy-on-write
+spans on the background lane, with one drain per scheduler event. The
+device values (the ``WriteStats`` accumulators, retention flips, burst
+energy deltas as ``Lazy`` args) are captured as references and land at
+the end of the run in one transfer; every gauge and host arg comes from
+host state. ``telemetry=None`` adds nothing to the loop.
+
+With ``ServeConfig.shards`` > 1 the pool spans that many dies
+(``repro_torch.sharding.DieMesh``) over the slot axis, served by the
+same full-pool bursts. ``die_ambients`` (``{die: kelvin}``) override the
+ambient per die: divergent ambients decay each slot at its die's
+temperature (per-slot threshold rows), give every die hotter than the
+coolest one extra die-masked scrub pass per pass, and steer HIGH-quality
+admissions to cool and little-worn dies. With the dies alike all of it
+collapses to the 1-die run, bit for bit. The report gains a
+``sharding`` section (per-die energy, flips, errors, scrub passes,
+decayed bits and wear).
 """
 from __future__ import annotations
 
@@ -55,9 +74,12 @@ from repro_torch import rng
 from repro_torch.core.energy_model import StepEnergyMeter
 from repro_torch.core.priority import Priority
 from repro_torch.memory import AddressState, WriteStats, rng_streams
+from repro_torch.reliability.scrub import scrub_span_args
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.prefix import PrefixCache, PrefixConfig, PrefixMatch
 from repro_torch.serve.slots import SlotPool
+from repro_torch.sharding import DieMesh, uniform
+from repro_torch.telemetry import LANE_BACKGROUND, Lazy, Telemetry
 
 
 @dataclasses.dataclass
@@ -138,11 +160,15 @@ class ContinuousScheduler:
                  scrub_policy: Optional[Any] = None,
                  ambient_schedule: Optional[Sequence[Tuple[int, float]]]
                  = None,
-                 wear_policy: Optional[Any] = None):
+                 wear_policy: Optional[Any] = None,
+                 telemetry: Optional[Telemetry] = None,
+                 die_ambients: Optional[Dict[int, float]] = None):
         assert capacity >= 1
         self.eng = engine
         self.scrub_policy = scrub_policy
         self.wear_policy = wear_policy
+        #: None = telemetry off: no instrument, span or drain anywhere
+        self.tele = telemetry
         #: piecewise-constant (step, kelvin) ambient overrides
         self.ambient_schedule = (sorted(ambient_schedule)
                                  if ambient_schedule else None)
@@ -150,6 +176,15 @@ class ContinuousScheduler:
         self.addr: Optional[AddressState] = None  # remap shifts, per run()
         self.pool = SlotPool(engine.api, capacity, engine.scfg.max_seq,
                              engine.device)
+        self.mesh = DieMesh(n_dies=max(1, engine.scfg.shards),
+                            capacity=capacity)
+        #: per-die ambient overrides (kelvin) on top of the global one
+        self.die_ambients: Dict[int, float] = dict(die_ambients or {})
+        assert all(0 <= d < self.mesh.n_dies for d in self.die_ambients)
+        if self.mesh.n_dies > 1:
+            # every die lives on the one card (DieMesh.shard_slots is an
+            # identity): the pool only learns its per-die slot ranges
+            self.pool.mesh = self.mesh
         #: None = prefix cache off: every admission takes the plain path
         self.prefix: Optional[PrefixCache] = None
         if engine.scfg.prefix_cache:
@@ -179,6 +214,45 @@ class ContinuousScheduler:
                 floor = max(floor, self._level[r.rid])
         return Priority(floor)
 
+    # ----------------------------------------------------------- telemetry
+    def _bind_telemetry(self) -> None:
+        """Bind the registry's device metrics to the run's accumulators
+        (references, rebuilt by ``+`` and never written in place, so a
+        drain pins its event's values; tuple parts sum on the host)."""
+        ins = self.tele.instruments
+        ins.bind("serve_prefill_energy_pj_total",
+                 lambda: self._acc_prefill.energy_pj)
+        ins.bind("serve_decode_energy_pj_total",
+                 lambda: self._acc_decode.energy_pj)
+        ins.bind("serve_scrub_energy_pj_total",
+                 lambda: self._acc_scrub.energy_pj)
+        ins.bind("serve_remap_energy_pj_total",
+                 lambda: self._acc_remap.energy_pj)
+        ins.bind("serve_flips_total",
+                 lambda: (self._acc_prefill.flips01,
+                          self._acc_prefill.flips10,
+                          self._acc_decode.flips01,
+                          self._acc_decode.flips10))
+        ins.bind("serve_bit_errors_total",
+                 lambda: (self._acc_prefill.errors,
+                          self._acc_decode.errors))
+        if self.eng.life_plan is not None:
+            ins.bind("serve_retention_flips_total",
+                     lambda: self.life.retention_flips)
+
+    def _event_gauges(self, clock: int, pending) -> Dict[str, float]:
+        """The event's gauges, all host state."""
+        ambient = self._ambient_at(clock)
+        return {
+            **self.pool.telemetry_gauges(),
+            "serve_queue_depth": len(pending),
+            "serve_ambient_k": (ambient if ambient is not None
+                                else self.eng.scfg.ambient_k),
+        }
+
+    def _req_track(self, rid: int) -> str:
+        return f"req {rid}"
+
     # ---------------------------------------------------------- prefix cache
     def _resolve_prefix(self, group: Sequence[Request]
                         ) -> Tuple[List[Optional[PrefixMatch]], List[Any]]:
@@ -199,7 +273,7 @@ class ContinuousScheduler:
                 max_cols=self.eng.prompt_len(r.prompt)))
         return matches, sigs
 
-    def _cow_owner(self, owner: int) -> None:
+    def _cow_owner(self, owner: int, clock: int) -> None:
         """Copy-on-write detach of every linker of ``owner``: each
         linker's columns are now really driven, booked at the price the
         link was credited (``WritePlan.alias_saving``)."""
@@ -209,6 +283,12 @@ class ContinuousScheduler:
                 bits, self.eng.device, energy_pj=torch.tensor(
                     pj, dtype=torch.float32, device=self.eng.device))
             self._cow_events += 1
+            if self.tele is not None:
+                self.tele.instruments.inc("serve_cow_events_total")
+                self.tele.tracer.complete(
+                    "cow_detach", clock, clock, lane=LANE_BACKGROUND,
+                    track="prefix", cat="prefix", owner=owner,
+                    linker=linker, cols=cols, energy_pj=pj)
             if self.eng.wear:
                 # the detached linker's columns are now its own drives
                 self.life = self.eng.life_plan.record_admission_write(
@@ -217,7 +297,7 @@ class ContinuousScheduler:
                     self.addr.shifts)
 
     def _make_room(self, n: int, matches: List[Optional[PrefixMatch]],
-                   exclude: set) -> None:
+                   exclude: set, clock: int) -> None:
         """Guarantee ``n`` allocatable slots: first CoW link-blocked free
         slots (lowest id first), then drop matches whose owner exclusion
         starves capacity."""
@@ -225,7 +305,7 @@ class ContinuousScheduler:
             blocked = [i for i in self.pool.blocked_free()
                        if i not in exclude]
             if blocked:
-                self._cow_owner(blocked[0])
+                self._cow_owner(blocked[0], clock)
                 continue
             dropped = False
             for j, m in enumerate(matches):
@@ -238,7 +318,7 @@ class ContinuousScheduler:
                     exclude.discard(m.slot)
                     if (self.pool.col_refs[m.slot] > 0
                             and self.pool.slot_req[m.slot] is None):
-                        self._cow_owner(m.slot)  # free but still blocked
+                        self._cow_owner(m.slot, clock)  # free, blocked
                 dropped = True
                 break
             assert dropped, (n, sorted(exclude))
@@ -270,15 +350,19 @@ class ContinuousScheduler:
             if self.prefix is not None:
                 matches, sigs = self._resolve_prefix(group)
                 exclude = {m.slot for m in matches if m is not None}
-                self._make_room(len(group), matches, exclude)
+                self._make_room(len(group), matches, exclude, clock)
             # wear-aware admission: HIGH-quality requests steer away from
             # slots backed by worn or decayed rows (the last wear
-            # checkpoint's scores, no read here); others keep the
-            # lowest-id order
+            # checkpoint's scores, no read here) and, once the dies are
+            # observably unequal, toward cool and little-worn dies;
+            # others keep the lowest-id order
             scores = None
-            if (self._slot_scores_host is not None and max(
-                    self._level[r.rid] for r in group) >= Priority.HIGH):
+            high = max(self._level[r.rid] for r in group) >= Priority.HIGH
+            if high:
                 scores = self._slot_scores_host
+                bias = self._die_bias(clock)
+                if bias is not None:
+                    scores = bias if scores is None else scores + bias
             ids = self.pool.alloc(len(group), scores=scores,
                                   exclude=sorted(exclude))
             vectors = self.eng.vectors_for_floor(
@@ -341,8 +425,35 @@ class ContinuousScheduler:
                 self._tokens[r.rid] = [(tok, j, 1)]
                 self._remaining[r.rid] = r.new_tokens - 1
                 self._admitted[r.rid] = clock
+            if self.tele is not None:
+                self._trace_admission(group, ids, matches, acc, clock)
             n_done += self._complete(clock)
         return key, n_done
+
+    def _trace_admission(self, group, ids, matches, acc, clock) -> None:
+        """Each admitted request's span tree: the root (arrival to
+        completion) with its queue and prefill children. The prefill's
+        energy is the group write's even split, a ``Lazy`` of the
+        group's device energy."""
+        tele = self.tele
+        tele.instruments.inc("serve_admissions_total", len(group))
+        share = Lazy(lambda e, k=len(group): e / k, acc.energy_pj)
+        for j, r in enumerate(group):
+            track = self._req_track(r.rid)
+            root = tele.tracer.begin(
+                f"req {r.rid}", r.arrival, track=track, cat="request",
+                rid=r.rid, app_id=str(r.app_id),
+                quality=self._level[r.rid].name)
+            self._req_span[r.rid] = root
+            tele.tracer.complete("queue", r.arrival, clock, track=track,
+                                 cat="request", parent=root)
+            m = matches[j]
+            pargs = dict(group=len(group), slot=ids[j], energy_pj=share)
+            if m is not None:
+                tele.instruments.inc("serve_prefix_linked_total")
+                pargs.update(m.span_args())
+            tele.tracer.complete("prefill", clock, clock, track=track,
+                                 cat="prefill", parent=root, **pargs)
 
     # ----------------------------------------------------------- reliability
     def _ambient_at(self, clock: int) -> Optional[float]:
@@ -356,10 +467,43 @@ class ContinuousScheduler:
                 t = kelvin
         return t
 
+    def _die_ambients_at(self, clock: int) -> Tuple[float, ...]:
+        """Per-die ambients at ``clock``: the global schedule or
+        configured ambient, overridden per die by ``die_ambients``."""
+        base = self._ambient_at(clock)
+        if base is None:
+            base = self.eng.scfg.ambient_k
+        return tuple(self.die_ambients.get(d, float(base))
+                     for d in range(self.mesh.n_dies))
+
     def _retention_vectors(self, clock: int) -> Tuple:
-        """Decay thresholds for the burst starting at ``clock``."""
+        """Decay thresholds for the burst starting at ``clock``: the
+        pool-wide ones while every die sits at one temperature, per-slot
+        rows once the die ambients diverge."""
+        amb = self._die_ambients_at(clock)
+        if not uniform(amb):
+            return self.eng.retention_vectors_for_dies(
+                self._floor(), amb, self.mesh.slots_per_die)
         return self.eng.retention_vectors_for(
             self._floor(), ambient_k=self._ambient_at(clock))
+
+    def _die_bias(self, clock: int) -> Optional[np.ndarray]:
+        """(capacity,) admission score bias steering HIGH-quality requests
+        to cool, little-worn dies (higher = a worse home, as
+        ``SlotPool.alloc`` reads scores): each die's kelvin above the
+        coolest die's plus its last wear checkpoint's peak group wear
+        above the healthiest die's. None while the dies' ambients are
+        alike, so such runs keep the 1-die admission order."""
+        if self.mesh.n_dies <= 1:
+            return None
+        amb = self._die_ambients_at(clock)
+        if uniform(amb):
+            return None
+        per_die = np.asarray(amb, np.float64) - min(amb)
+        if self._die_wear_host is not None:
+            per_die = per_die + (self._die_wear_host
+                                 - self._die_wear_host.min())
+        return self.mesh.per_slot(per_die)
 
     def _maybe_scrub(self, clock: int, key) -> None:
         """Idle-slot background scrubbing: when the host-side policy says a
@@ -385,18 +529,47 @@ class ContinuousScheduler:
                              else ("rid", r.rid))
                     floor = max(floor, eng.controller.resolve_request(block))
         cols = policy.cols_per_pass or None
-        k = rng.fold_in(key, rng_streams.SCHEDULER_SCRUB_PASS_OFFSET
-                        + self._scrub_passes)
-        # with wear on the cursor walks physical rows through the current
-        # shifts, and worn rows keep their decay
-        self.pool.cache, self.life, st = eng.scrub(
-            k, self.pool.cache, self.life,
-            eng.vectors_for_floor(Priority(floor)), enabled=enabled,
-            cols=cols, cursor=self._scrub_cursor,
-            shifts=None if self.addr is None else self.addr.shifts)
-        self._acc_scrub = self._acc_scrub + st
+        vectors = eng.vectors_for_floor(Priority(floor))
+        shifts = None if self.addr is None else self.addr.shifts
+
+        def scrub_pass(slot_mask=None):
+            # the pass key folds the pass index off the decode key; with
+            # wear on the cursor walks physical rows through the current
+            # shifts, and worn rows keep their decay
+            k = rng.fold_in(key, rng_streams.SCHEDULER_SCRUB_PASS_OFFSET
+                            + self._scrub_passes)
+            self.pool.cache, self.life, st = eng.scrub(
+                k, self.pool.cache, self.life, vectors, enabled=enabled,
+                cols=cols, cursor=self._scrub_cursor, shifts=shifts,
+                slot_mask=slot_mask)
+            self._acc_scrub = self._acc_scrub + st
+            self._scrub_passes += 1
+            return st
+
+        st = scrub_pass()
+        if self.tele is not None:
+            # scrub interference on the background lane, over the same
+            # clock; the pass energy stays a device ref until finalize
+            self.tele.instruments.inc("serve_scrub_passes_total")
+            self.tele.tracer.complete(
+                "scrub_pass", clock, clock, lane=LANE_BACKGROUND,
+                track="scrub", cat="reliability",
+                **scrub_span_args(
+                    st, policy, cols=cols or 0, floor=Priority(floor),
+                    resident=[self.pool.slot_req[i].rid
+                              for i in self.pool.occupied()]))
         policy.record(clock)
-        self._scrub_passes += 1
+        for d in range(self.mesh.n_dies):
+            self._die_scrub_passes[d] += 1
+        # per-die cadence: a die hotter than the coolest decays faster
+        # and earns one extra pass over its own slots (out-of-die slots
+        # held out at zero energy); with alike ambients this never runs
+        amb = self._die_ambients_at(clock)
+        if not uniform(amb):
+            for d, t in enumerate(amb):
+                if t > min(amb):
+                    scrub_pass(self.mesh.slot_mask(d, eng.device))
+                    self._die_scrub_passes[d] += 1
         if cols:
             self._scrub_cursor = (self._scrub_cursor + cols) % \
                 eng.scfg.max_seq
@@ -428,6 +601,15 @@ class ContinuousScheduler:
             return
         self._last_wear_check = clock
         wear, self._slot_scores_host = self.read_wear()
+        if self.mesh.n_dies > 1:
+            # per-die health from the same read: each die's peak
+            # row-group wear
+            self._die_wear_host = self.mesh.reduce_wear(wear)
+        if self.tele is not None:
+            self.tele.tracer.complete(
+                "wear_check", clock, clock, lane=LANE_BACKGROUND,
+                track="wear", cat="reliability",
+                max_group_wear=int(wear.max()))
         if pol is not None and pol.plan_rotation(clock, wear):
             self.addr = self.addr.rotate(self._rotatable, pol.rotate_step)
             self._acc_remap = self._acc_remap + self._remap_stats()
@@ -437,6 +619,13 @@ class ContinuousScheduler:
                 pol.rotate_step)
             self._gap_host += pol.rotate_step
             pol.record(clock, wear)
+            if self.tele is not None:
+                self.tele.instruments.inc("serve_wear_rotations_total")
+                self.tele.tracer.complete(
+                    "remap_rotation", clock, clock, lane=LANE_BACKGROUND,
+                    track="wear", cat="reliability",
+                    rotate_step=pol.rotate_step,
+                    migration_energy_pj=float(self._remap_cost[0]))
 
     def read_wear(self) -> Tuple[np.ndarray, np.ndarray]:
         """The wear checkpoint's one device read: the (L, G) row-group
@@ -521,10 +710,51 @@ class ContinuousScheduler:
                 "flips": flips, "errors": errors,
                 "ber": errors / max(flips, 1.0),
             }
+            if self.tele is not None:
+                self._trace_completion(r.rid, i, clock)
             del self._tokens[r.rid]
             del self._remaining[r.rid], self._admitted[r.rid]
         self.pool.release(done)
         return len(done)
+
+    def _trace_completion(self, rid: int, slot: int, clock: int) -> None:
+        """Close a request's root span with its attributed energy, flips
+        and BER (host values this event's read already brought) and
+        observe its latency and queue wait."""
+        rep = self._reports[rid]
+        ins = self.tele.instruments
+        ins.inc("serve_completions_total")
+        ins.observe("serve_request_latency_steps", rep["latency_steps"])
+        ins.observe("serve_request_queue_steps", rep["queue_steps"])
+        root = self._req_span.pop(rid, None)
+        if root is not None:
+            self.tele.tracer.end(
+                root, clock, slot=slot, n_tokens=rep["n_tokens"],
+                energy_pj=rep["energy_pj"], flips=rep["flips"],
+                errors=rep["errors"], ber=rep["ber"])
+
+    def _trace_burst(self, n: int, clock: int, active_ids,
+                     e_before: torch.Tensor) -> None:
+        """The burst's span on the pool track and a decode span per
+        active request; the energy delta and its even split are ``Lazy``
+        args over the accumulator before and after (no op here)."""
+        ins = self.tele.instruments
+        ins.inc("serve_bursts_total")
+        ins.inc("serve_decode_steps_total", n)
+        ins.observe("serve_burst_steps", n)
+        e_after = self._acc_decode.energy_pj
+        burst_e = Lazy(lambda a, b: a - b, e_after, e_before)
+        share = Lazy(lambda a, b, k=len(active_ids): (a - b) / k,
+                     e_after, e_before)
+        self.tele.tracer.complete(
+            "burst", clock - n, clock, track="pool", cat="decode",
+            steps=n, active=len(active_ids), energy_pj=burst_e)
+        for i in active_ids:
+            rid = self.pool.slot_req[i].rid
+            self.tele.tracer.complete(
+                "decode", clock - n, clock, track=self._req_track(rid),
+                cat="decode", parent=self._req_span.get(rid), steps=n,
+                energy_pj=share)
 
     def run(self, requests,
             wear_state: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
@@ -544,10 +774,15 @@ class ContinuousScheduler:
         self._saved_pj = 0.0
         self._saved_bits = 0
         self._linked_admissions = self._linked_cols = self._cow_events = 0
+        self._req_span: Dict[int, int] = {}
+        if self.tele is not None:
+            self._bind_telemetry()
         if self.prefix is not None:
             self.prefix.reset_stats()  # as the extent table's
         self._scrub_passes = 0
         self._scrub_cursor = 0
+        self._die_scrub_passes = [0] * self.mesh.n_dies
+        self._die_wear_host = None
         if self.scrub_policy is not None:
             self.scrub_policy.reset()  # the serving clock restarts at 0
         self._last_wear_check = 0
@@ -577,6 +812,9 @@ class ContinuousScheduler:
                         and pool.free_slots()):
                     break
             if not pool.busy():
+                if self.tele is not None:
+                    self.tele.event(clock,
+                                    **self._event_gauges(clock, pending))
                 continue
             active_ids = pool.occupied()
             n = min(self._remaining[pool.slot_req[i].rid]
@@ -592,6 +830,10 @@ class ContinuousScheduler:
                         n = min(n, step - clock)
                         break
             n = max(int(n), 1)
+            # the pre-burst decode energy (a reference): the burst span's
+            # energy is a lazy delta against it
+            e_before = (self._acc_decode.energy_pj
+                        if self.tele is not None else None)
             active = pool.active_mask()
             vectors = eng.vectors_for_floor(self._floor())
             rvec = (self._retention_vectors(clock)
@@ -610,9 +852,13 @@ class ContinuousScheduler:
             clock += n
             decode_steps += n
             bursts += 1
+            if self.tele is not None:
+                self._trace_burst(n, clock, active_ids, e_before)
             self._complete(clock)
             self._maybe_scrub(clock, key)
             self._maybe_wear_check(clock)
+            if self.tele is not None:
+                self.tele.event(clock, **self._event_gauges(clock, pending))
         pre_host = self._acc_prefill.host_dict()
         dec_host = self._acc_decode.host_dict()
         self.meter.add_stream("kv_prefill", pre_host)
@@ -683,4 +929,58 @@ class ContinuousScheduler:
                 "rotations": pol.rotations if pol else 0,
                 "remap_energy_pj": remap_host["energy_pj"],
                 **eng.wear_report(self.life)}
+        if self.mesh.n_dies > 1:
+            summary["sharding"] = self._sharding_summary(clock)
+        if self.tele is not None:
+            # one snapshot every consumer (launcher, exporters) reads
+            summary["telemetry"] = self.tele.snapshot()
         return summary
+
+    def _sharding_summary(self, clock: int) -> Dict[str, Any]:
+        """Per-die breakdown of the merged ledger: contiguous-slice
+        reductions, on the host, of the per-slot attribution, the
+        per-slot decayed bits and the row-group wear, read in one
+        transfer (float64 holds the float32 attribution and the int64
+        counts exactly)."""
+        m, pool, eng = self.mesh, self.pool, self.eng
+        amb = self._die_ambients_at(clock)
+        parts = [pool.slot_acc[k].to(torch.float64)
+                 for k in ("energy_pj", "flips", "errors")]
+        decay = (None if self.life is None
+                 else eng.life_plan.decayed_bits_by_slot(self.life))
+        if decay is not None:
+            parts.append(decay.to(torch.float64))
+        wear = self.life.row_wear() if eng.wear else None
+        if wear is not None:
+            parts.append(wear.reshape(-1).to(torch.float64))
+        flat = torch.cat(parts).cpu().numpy()
+        cap = m.capacity
+        energy, flips, errors = (
+            m.reduce_slots(flat[j * cap:(j + 1) * cap].astype(np.float32))
+            for j in range(3))
+        off = 3 * cap
+        if decay is not None:
+            decay = m.reduce_slots(flat[off:off + cap].astype(np.int64))
+            off += cap
+        if wear is not None:
+            wear = m.reduce_wear(flat[off:].astype(np.int64).reshape(
+                tuple(wear.shape)))
+        dies = []
+        for d in range(m.n_dies):
+            sl = m.slot_slice(d)
+            row: Dict[str, Any] = {
+                "die": d, "slots": [sl.start, sl.stop],
+                "ambient_k": amb[d],
+                "energy_pj": float(energy[d]),
+                "flips": float(flips[d]),
+                "errors": float(errors[d]),
+                "scrub_passes": self._die_scrub_passes[d],
+            }
+            if decay is not None:
+                row["decayed_bits"] = int(decay[d])
+            if wear is not None:
+                row["max_group_wear"] = int(wear[d])
+            dies.append(row)
+        # every die folds onto the one card
+        return {"shards": m.n_dies, "slots_per_die": m.slots_per_die,
+                "mesh_devices": 1, "dies": dies}

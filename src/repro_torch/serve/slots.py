@@ -53,6 +53,8 @@ class SlotPool:
         self.admission_groups = 0
         self.completions = 0
         self.peak_occupancy = 0
+        #: the die mesh of a sharded pool (None = one die)
+        self.mesh = None
 
     def free_slots(self) -> int:
         return len(self._free)
@@ -193,8 +195,20 @@ class SlotPool:
                             dtype=torch.bool, device=self.device)
 
     def stats(self) -> Dict[str, Any]:
-        return {"capacity": self.capacity, "admissions": self.admissions,
-                "admission_groups": self.admission_groups,
-                "completions": self.completions,
-                "peak_occupancy": self.peak_occupancy,
-                "occupancy": self.capacity - len(self._free)}
+        out: Dict[str, Any] = {
+            "capacity": self.capacity, "admissions": self.admissions,
+            "admission_groups": self.admission_groups,
+            "completions": self.completions,
+            "peak_occupancy": self.peak_occupancy,
+            "occupancy": self.capacity - len(self._free)}
+        if self.mesh is not None:
+            out["occupancy_by_die"] = [
+                sum(1 for i in range(*self.mesh.slot_slice(d).indices(
+                    self.capacity)) if self.slot_req[i] is not None)
+                for d in range(self.mesh.n_dies)]
+        return out
+
+    def telemetry_gauges(self) -> Dict[str, int]:
+        """The pool's per-event gauge sample (``repro_torch.telemetry``):
+        host free-list metadata only, no device read."""
+        return {"serve_pool_occupancy": self.capacity - len(self._free)}
