@@ -168,15 +168,47 @@ each printed as one JSON line:
                     wear checkpoints' ms; then the windowed scrub on
                     (c)'s end-of-run state: the pass (CUDA events) and
                     its kernel (torch.profiler) against the byte bound.
+ 18. reduced_moe  — reduced dbrx-132b (4 experts, top-2) in float32 (TF32
+                    off) serving the fixture trace through the kernels
+                    and through the twins, without retention and at 400 K
+                    with periodic whole-leaf scrubbing: tokens, flips,
+                    errors and lifetime counters identical, energies
+                    rtol 1e-5;
+ 19. sampling     — the ``full`` traffic with ServeConfig(greedy=False),
+                    temperature 1.0: two runs with one seed identical, a
+                    run with another seed different in tokens, extent_write
+                    launches equal to ``full``'s, bursts sync-free; one
+                    sampling step's uniforms (4 x 151936) on the card
+                    equal to the host numpy draws bit for bit, in float32
+                    (the logits' dtype) and bfloat16; a sampling step's
+                    ms beside an argmax's;
+ 20. workload     — the six workload presets generated for qwen2.5-3b
+                    (16 events, seed 7; each trace's sha256), chat_batch
+                    served at full width (capacity 4, launches counted,
+                    bursts sync-free), and a synthetic stream recorded,
+                    saved, reloaded and replayed: the replay's report
+                    equals the original's;
+ 21. moe          — dbrx-132b at full published width (16 experts top-4,
+                    d_ff 10752, 8 KV heads of 128, vocab 100352, bf16,
+                    random weights from a seed, capacity factor 1.25), its
+                    depth cut to 6 of 40 layers (41.6 GB of weights):
+                    layer 0's MoE FFN against a plain per-token loop, the
+                    ms per decode step at batch 4, then the ``full``
+                    traffic twice (identical tokens, counts, launches and
+                    dropped assignments; prefill drops counted, decode
+                    never drops), and the extent_write kernel at this
+                    cache's admission shape (6, 1, 288, 8, 128) bf16
+                    against its twin and its byte bound.
 
 They run in the order build, kernel, scrub_kernel,
 local_attention_kernel, kv_quant_kernel, rng_device, reduced,
-reduced_hybrid, full, retention, telemetry, shards, oracle, prefix,
-soft_errors, wear, hybrid; then nvidia-smi's line again and the kernels
-line, where the extent_write and scrub entries add their launches on
-each path (``launches_by_path``) and scrub's the windowed pass
-(``at.window_through_rotation``) and the die-masked pass
-(``at.die_masked``).
+reduced_hybrid, reduced_moe, full, retention, telemetry, shards, oracle,
+prefix, soft_errors, wear, sampling, workload, hybrid, moe; then
+nvidia-smi's line again and the kernels line, where the extent_write and
+scrub entries add their launches on each path (``launches_by_path``),
+extent_write the MoE admission write (``at.admission_moe``) and scrub
+the windowed pass (``at.window_through_rotation``) and the die-masked
+pass (``at.die_masked``).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, so
 the script exits non-zero and prints no result; it also refuses to run
@@ -2049,6 +2081,375 @@ def phase_hybrid(device):
     return launches, sch, worst
 
 
+# ---------------------------------------------------------------------------
+# the MoE family, non-greedy sampling and generated workloads
+# ---------------------------------------------------------------------------
+
+#: dbrx-132b's depth on the card: 6 of its 40 layers (the full-width
+#: weights of 6 layers are 41.6 GB of bf16; 40 would not fit one card)
+MOE_LAYERS = 6
+#: the workload phase's presets: 16 events from root seed 7
+WORKLOAD_EVENTS, WORKLOAD_SEED = 16, 7
+#: sha256 of each preset's trace (``workload.trace.dumps``) for
+#: qwen2.5-3b at those settings, as the JAX package generates it
+#: (tests/test_torch_workload.py holds these against it)
+PRESET_SHA256 = {
+    "steady": "a16a7a5b8aa20156a13be83d9d29d85f829b6fe12dbc8132acbd9682657e0d6c",
+    "diurnal": "78105670fadb70889c094362b2bb418bb964335902f401ccbee3f23a13e53e55",
+    "bursty": "02873d82e4986c1d357b34e5772ee6ba952aed4e3ebdbcdf6ce197a75eb96960",
+    "heavy_tail":
+        "6ea8ec4ab41f6b27edfa891cdc9bda8ea3e048de40d0e1611cf8848c3ce3a11b",
+    "chat_batch":
+        "5910a865d61d6b3ed71cb2bd85db35dbe4b43acb9b13244246b7a8eabaca5774",
+    "shared_system_prompt":
+        "302c77231fde4f25d1522cd4be7b4043aef4f1746af09309e2e632af61a0315a",
+}
+
+
+def phase_reduced_moe(device):
+    """Reduced dbrx-132b (4 experts, top-2) in float32 (TF32 off) serving
+    the fixture trace through the kernels and through the twins, without
+    retention and at 400 K with periodic whole-leaf scrubbing: tokens,
+    flips, errors and lifetime counters identical, energies rtol 1e-5.
+    Returns the kernel runs' extent_write and scrub launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("dbrx-132b").reduced()
+    params = get_model(cfg).init(0, device)
+    counts = {"extent_write": 0, "scrub": 0}
+    for ret in ({}, dict(retention_scale=1000.0, ambient_k=400.0)):
+        scrub_cols = 0 if ret else None
+        n0 = read_launches()
+        rep_k, _ = serve_trace(cfg, params, "cuda", device,
+                               scrub_cols=scrub_cols, **ret)
+        n1 = read_launches()
+        rep_r, _ = serve_trace(cfg, params, "lanes_ref", device,
+                               scrub_cols=scrub_cols, **ret)
+        if read_launches() != n1:
+            raise AssertionError("reduced moe: the twin run launched a "
+                                 "kernel")
+        launched = {k: n1[k] - n0[k] for k in counts}
+        what = "reduced moe" + (", 400 K scrub" if ret else "")
+        same_serve(rep_k, rep_r, what)
+        check_write_launches(launched, rep_k)
+        lt = rep_k.get("lifetime", {})
+        if ret and not (lt["scrub_passes"] > 0 and lt["retention_flips"] > 0
+                        and launched["scrub"] == 2 * lt["scrub_passes"]):
+            raise AssertionError(f"{what}: launches {launched}, {lt}")
+        for k in counts:
+            counts[k] += launched[k]
+        tk = rep_k["total"]
+        emit({"phase": "reduced_moe", "arch": cfg.name, "tf32": False,
+              "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+              "retention": "400 K, whole-leaf scrub" if ret else "off",
+              "requests": len(rep_k["requests"]),
+              "clock_steps": rep_k["clock_steps"],
+              "bits_written": tk["bits_written"],
+              "bit_errors": tk["bit_errors"],
+              "energy_pj": [tk["energy_pj"], rep_r["total"]["energy_pj"]],
+              "launches": launched, **{k: lt[k] for k in (
+                  "retention_flips", "residual_decayed_bits",
+                  "scrub_passes") if k in lt}, "ok": True})
+    return counts
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Inside, every MoE FFN call keeps its dropped-assignment count (a
+    device scalar; serving discards it) in ``seen["prefill"]`` (prompt
+    calls) or ``seen["decode"]``; reading them after the run is the
+    only sync."""
+    from repro_torch.models import moe
+    saved = moe.moe_apply
+    seen = {"prefill": [], "decode": []}
+
+    def spy(p, x, cfg):
+        y, aux = saved(p, x, cfg)
+        seen["prefill" if x.shape[1] > 1 else "decode"].append(
+            aux["dropped"])
+        return y, aux
+
+    moe.moe_apply = spy
+    try:
+        yield seen
+    finally:
+        moe.moe_apply = saved
+
+
+def moe_dense_check(eng, device) -> float:
+    """Layer 0's MoE FFN at full width on 4 decode tokens against the
+    plain per-token loop (each token through its top-k experts, the bf16
+    weights upcast, float32 throughout). Returns the largest difference
+    over the loop's largest value; bf16 rounding of the expert products
+    and of the k-term sum keeps it near 2^-8."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    cfg = eng.cfg
+    p = {k: v[0] for k, v in eng.params["layers"]["moe"].items()}
+    g = torch.Generator(device=device)
+    g.manual_seed(5)
+    x = torch.randn((1, 4, cfg.d_model), generator=g, device=device).to(
+        torch.bfloat16)
+    y, aux = moe.moe_apply(p, x, cfg)
+    xf = x[0].float()
+    probs = torch.softmax(xf @ p["router"].float(), dim=-1)
+    gates, idx = torch.topk(probs, cfg.experts_per_token)
+    gates = gates / gates.sum(-1, keepdim=True)
+    ref = torch.zeros((4, cfg.d_model), device=device)
+    for t, e in enumerate(idx.tolist()):
+        for j, ej in enumerate(e):
+            h = (F.silu(xf[t] @ p["wi_gate"][ej].float())
+                 * (xf[t] @ p["wi_up"][ej].float()))
+            ref[t] += gates[t, j] * (h @ p["wo"][ej].float())
+    err = float((y[0].float() - ref).abs().max() / ref.abs().max())
+    if int(aux["dropped"]) or not err < 2.0 ** -5:
+        raise AssertionError(f"moe at full width: {err} against the plain "
+                             f"loop, {int(aux['dropped'])} dropped")
+    return err
+
+
+def phase_moe(device):
+    """dbrx-132b at full published width (d_model 6144, 48 heads over 8 KV
+    heads of 128, 16 experts top-4, d_ff 10752, vocab 100352, bf16,
+    random weights from seed 0, capacity factor 1.25), its depth cut to
+    MOE_LAYERS: the ``full`` traffic twice, identical in tokens, counts
+    and launches; the prefills' dropped assignments counted. Returns the
+    extent_write launches of one run and the admission write's timing."""
+    import dataclasses
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core.priority import Priority
+    from repro_torch.kernels.extent_write import ops
+    from repro_torch.models import get_model, moe
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(0, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    eng = ServingEngine(cfg, ServeConfig(
+        max_seq=PROMPT_LEN + NEW_TOKENS, max_new_tokens=NEW_TOKENS,
+        backend="cuda"), params, device=device)
+    dense_err = moe_dense_check(eng, device)
+    step_ms = decode_step_ms(eng, PROMPT_LEN, CAPACITY)
+    runs = []
+    for _ in range(2):
+        with moe_drops() as seen:
+            reset_launches()
+            rep, sch, wall = serve_full(eng, PROMPT_LEN)
+            launches = read_launches()
+        check_write_launches(launches, rep)
+        if any(launches[k] for k in ("scrub", "local_attention",
+                                     "kv_quant")):
+            raise AssertionError(f"moe path launched another kernel: "
+                                 f"{launches}")
+        drops = {k: [int(d) for d in torch.stack(v).tolist()]
+                 for k, v in seen.items()}
+        runs.append((rep, sch, wall, launches, drops))
+    (rep, sch, wall, launches, drops), again = runs[0], runs[1]
+    if not (same_run(again[0], rep) and again[3] == launches
+            and again[4] == drops):
+        raise AssertionError("moe: two runs of one traffic differ")
+    if any(drops["decode"]):
+        raise AssertionError("moe: a decode step dropped an assignment")
+    groups = rep["pool"]["admission_groups"]
+    if len(drops["prefill"]) != MOE_LAYERS * groups:
+        raise AssertionError(f"moe: {len(drops['prefill'])} prefill MoE "
+                             f"calls for {groups} admission groups")
+    peak = torch.cuda.max_memory_allocated()
+    # the admission write at this cache's shape (6, 1, 288, 8, 128) bf16
+    vecs = eng.vectors_for_floor(Priority.LOW)
+    news = admission_rows(eng, 11)
+    stale = T.leaves(sch.pool.extract_rows([0]))
+    adm = time_writes(
+        f"moe admission {tuple(news[0].shape)} over stale rows",
+        [(ops.to_lanes(o), ops.to_lanes(n),
+          (v.thr01, v.thr10, v.le01, v.le10))
+         for o, n, v in zip(stale, news, vecs) if v is not None])
+    tot = rep["total"]
+    emit({"phase": "moe", "arch": cfg.name, "layers": MOE_LAYERS,
+          "layers_published": get_config("dbrx-132b").num_layers,
+          "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+          "capacity_factor": cfg.capacity_factor,
+          "params": eng.api.num_params(),
+          "active_params_per_token": eng.api.active_params_per_token(),
+          "param_bytes": n_bytes, "init_s": init_s,
+          "requests": N_REQ, "capacity": CAPACITY, "prompt_len": PROMPT_LEN,
+          "new_tokens": NEW_TOKENS, "clock_steps": rep["clock_steps"],
+          "decode_steps": rep["decode_steps"], "bursts": rep["bursts"],
+          "admission_groups": groups, "wall_s": [wall, again[2]],
+          "tokens_per_s": N_REQ * NEW_TOKENS / wall,
+          "decode_ms_per_step_b4": step_ms, "peak_mem_bytes": peak,
+          "expert_capacity_prompt": moe.capacity_for(cfg, PROMPT_LEN),
+          "prefill_dropped_total": sum(drops["prefill"]),
+          "prefill_dropped_per_layer_call": drops["prefill"],
+          "decode_dropped_total": 0,
+          "dense_loop_max_rel_err": dense_err,
+          "kv_write_energy_pj": tot["energy_pj"],
+          "ber": tot["ber_realized"], "bursts_sync_free": True,
+          "two_runs_identical": True,
+          "extent_write_launches": launches["extent_write"],
+          "admission_write": adm, "ok": True})
+    return launches["extent_write"], adm
+
+
+def phase_sampling(device, eng_full, full_launches):
+    """The ``full`` traffic with ``greedy=False`` at temperature 1.0: two
+    runs with one seed identical, a run with another ``ServeConfig.seed``
+    different in tokens, the extent_write launches equal to ``full``'s,
+    every burst sync-free; one sampling step's uniform draws (4 x vocab)
+    on the card equal to the host's, bit for bit, in float32 (the logits'
+    dtype) and in bfloat16. Returns the extent_write launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import rng
+    from repro_torch.serve import ServingEngine
+    vocab = eng_full.cfg.vocab_size
+    key = rng.fold_in(rng.PRNGKey(9), 3)
+    tiny = float(np.finfo(np.float32).tiny)
+    draws = {}
+    for name in ("float32", "bfloat16"):
+        dev = rng.uniform_t(key, (CAPACITY, vocab), device,
+                            getattr(torch, name), minval=tiny)
+        host = rng.uniform(key, (CAPACITY, vocab), name, minval=tiny)
+        if not np.array_equal(dev.float().cpu().numpy().view(np.int32),
+                              host.view(np.int32)):
+            raise AssertionError(f"sampling: {name} uniforms on the card "
+                                 f"differ from the host's")
+        g_dev = rng.gumbel_t(key, (CAPACITY, vocab), device,
+                             getattr(torch, name)).float().cpu().numpy()
+        g_host = rng.gumbel(key, (CAPACITY, vocab), name)
+        draws[name] = {"uniform_identical": True,
+                       "gumbel_differing": int((g_dev != g_host).sum()),
+                       "gumbel_max_abs_diff": float(
+                           np.abs(g_dev - g_host).max())}
+    logits = torch.randn((CAPACITY, vocab), device=device)
+    sample_ms = cuda_ms(lambda: rng.categorical_t(key, logits), iters=50)
+    argmax_ms = cuda_ms(lambda: torch.argmax(logits, dim=-1), iters=50)
+
+    def engine(**kw):
+        return ServingEngine(eng_full.cfg, dataclasses.replace(
+            eng_full.scfg, greedy=False, temperature=1.0, **kw),
+            eng_full.params, device=device)
+
+    runs = []
+    for eng in (engine(), engine(), engine(seed=1)):
+        reset_launches()
+        rep, _, wall = serve_full(eng, PROMPT_LEN)
+        runs.append((rep, wall, read_launches()))
+    (rep, wall, launches), (rep2, _, launches2), (rep3, _, _) = runs
+
+    def toks(r):
+        return [r["requests"][i]["tokens"] for i in range(N_REQ)]
+
+    if not (same_run(rep2, rep) and launches2 == launches):
+        raise AssertionError("sampling: two runs with one seed differ")
+    if toks(rep3) == toks(rep):
+        raise AssertionError("sampling: another seed gave the same tokens")
+    if launches["extent_write"] != full_launches:
+        raise AssertionError(f"sampling: {launches} extent_write launches "
+                             f"against full's {full_launches}")
+    tot = rep["total"]
+    emit({"phase": "sampling", "arch": eng_full.cfg.name, "greedy": False,
+          "temperature": 1.0, "logits_dtype": "float32",
+          "requests": N_REQ, "clock_steps": rep["clock_steps"],
+          "decode_steps": rep["decode_steps"], "wall_s": wall,
+          "tokens_per_s": N_REQ * NEW_TOKENS / wall,
+          "sample_ms_per_step_b4": sample_ms,
+          "argmax_ms_per_step_b4": argmax_ms, "draws": draws,
+          "two_runs_identical": True, "other_seed_tokens_differ": True,
+          "kv_write_energy_pj": tot["energy_pj"],
+          "ber": tot["ber_realized"], "bursts_sync_free": True,
+          "extent_write_launches": launches["extent_write"], "ok": True})
+    return launches["extent_write"]
+
+
+def phase_workload(device, eng_full):
+    """The six presets generated for qwen2.5-3b (sha256 of each trace,
+    held against the reference's, PRESET_SHA256);
+    ``chat_batch`` served at full width through the scheduler (capacity
+    4, launches counted); a synthetic stream recorded, saved, reloaded and
+    replayed: the replay's report equals the original's. Returns the
+    extent_write launches of the chat_batch run."""
+    import dataclasses
+    import hashlib
+    import tempfile
+    import torch
+    from repro_torch.serve import (ContinuousScheduler, ServingEngine,
+                                   synthetic_requests)
+    from repro_torch.workload import (PRESETS, TraceSource, load_trace,
+                                      make_workload, pressure_score,
+                                      record_requests, save_trace)
+    from repro_torch.workload.trace import dumps
+    cfg = eng_full.cfg
+    t0 = time.perf_counter()
+    traces = {name: make_workload(name, cfg, WORKLOAD_EVENTS,
+                                  seed=WORKLOAD_SEED) for name in PRESETS}
+    gen_s = time.perf_counter() - t0
+    digests = {name: hashlib.sha256(dumps(t).encode()).hexdigest()
+               for name, t in traces.items()}
+    if cfg.name == "qwen2.5-3b" and digests != PRESET_SHA256:
+        raise AssertionError(f"workload: generated traces differ from the "
+                             f"reference's: {digests}")
+
+    def engine(max_seq, new_tokens):
+        return ServingEngine(cfg, dataclasses.replace(
+            eng_full.scfg, max_seq=max_seq, max_new_tokens=new_tokens),
+            eng_full.params, device=device)
+
+    def serve(trace_or_reqs, eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = ContinuousScheduler(eng, capacity=CAPACITY).run(trace_or_reqs)
+        torch.cuda.synchronize()
+        return rep, time.perf_counter() - t0
+
+    chat = traces["chat_batch"]
+    reset_launches()
+    rep, wall = serve(TraceSource(chat, cfg, device),
+                      engine(chat.max_seq(), chat.max_new_tokens()))
+    launches = read_launches()
+    check_write_launches(launches, rep)
+    tokens = sum(e.new_tokens for e in chat.events)
+    if sum(len(r["tokens"]) for r in rep["requests"].values()) != tokens:
+        raise AssertionError("workload: chat_batch served the wrong count")
+    # a synthetic stream, recorded and replayed
+    reqs = synthetic_requests(cfg, N_REQ, device=device, prompt_len=64,
+                              new_tokens=8, arrival_every=2,
+                              app_ids=("chat", "batch"))
+    rec = record_requests(reqs, cfg, meta={"source": "synthetic"})
+    base, _ = serve(reqs, engine(72, 8))
+    with tempfile.TemporaryDirectory() as d:
+        loaded = load_trace(save_trace(rec, Path(d) / "stream.jsonl"))
+    replay, _ = serve(TraceSource(loaded, cfg, device),
+                      engine(loaded.max_seq(), loaded.max_new_tokens()))
+    if not (dumps(loaded) == dumps(rec) and replay == base):
+        raise AssertionError("workload: the replayed stream's report "
+                             "differs from the original's")
+    emit({"phase": "workload", "arch": cfg.name, "events": WORKLOAD_EVENTS,
+          "seed": WORKLOAD_SEED, "generate_s": gen_s,
+          "sha256": digests,
+          "pressure": {n: pressure_score(t) for n, t in traces.items()},
+          "chat_batch": {"requests": len(chat.events),
+                         "clock_steps": rep["clock_steps"],
+                         "decode_steps": rep["decode_steps"],
+                         "bursts": rep["bursts"], "wall_s": wall,
+                         "tokens_per_s": tokens / wall,
+                         "kv_write_energy_pj": rep["total"]["energy_pj"],
+                         "ber": rep["total"]["ber_realized"],
+                         "launches": launches},
+          "replay_equals_original": True, "bursts_sync_free": True,
+          "ok": True})
+    return launches["extent_write"]
+
+
 def decode_step_ms(eng, prompt_len, batch) -> float:
     """Milliseconds per fused decode step (model + column writes) at a
     full pool, timed over one 16-step burst after a prefill and a 2-step
@@ -2465,6 +2866,7 @@ def main() -> int:
     phase_rng_device(device)
     phase_reduced(device)
     phase_reduced_hybrid(device)
+    rm_launches = phase_reduced_moe(device)
     launches, eng, sch, full_rep = phase_full(device)
     r_launches, r_sch, ret_rep = phase_retention(device, eng)
     s_launches = r_launches["scrub"]
@@ -2481,16 +2883,20 @@ def main() -> int:
     phase_prefix(device, eng)
     phase_soft_errors(device, eng)
     window, w_scrub, w_launches = phase_wear(device, eng, full_rep, launches)
+    smp_launches = phase_sampling(device, eng, launches)
+    wl_launches = phase_workload(device, eng)
     # the wear runs' launches and the windowed scrub's times join the
     # entries of the kernels they drove
     entries[0]["launches_by_path"] = {
         "full": launches, "telemetry": t_launches["extent_write"],
         **{k: v["extent_write"] for k, v in sh_launches.items()},
-        **{f"wear_{k}": v["extent_write"] for k, v in w_launches.items()}}
+        **{f"wear_{k}": v["extent_write"] for k, v in w_launches.items()},
+        "reduced_moe": rm_launches["extent_write"],
+        "sampling": smp_launches, "workload": wl_launches}
     entries[1]["launches_by_path"] = {
         "retention": s_launches,
         **{k: v["scrub"] for k, v in sh_launches.items()},
-        "wear_failure": w_scrub}
+        "wear_failure": w_scrub, "reduced_moe": rm_launches["scrub"]}
     entries[1]["at"]["window_through_rotation"] = window
     entries[1]["at"]["die_masked"] = masked
     del eng
@@ -2502,6 +2908,13 @@ def main() -> int:
                 kv_quant_entry(h_launches["kv_quant"],
                                max(q_worst, served_worst), q_registers,
                                h_sch)]
+    # the hybrid's state goes before dbrx-132b's 41.6 GB of weights
+    del h_sch
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_launches, moe_admission = phase_moe(device)
+    entries[0]["launches_by_path"]["moe"] = moe_launches
+    entries[0]["at"]["admission_moe"] = moe_admission
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {

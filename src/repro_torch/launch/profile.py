@@ -2,8 +2,11 @@
 
   python -m repro_torch.launch.profile [--arch qwen2.5-3b] [--batch 4] \
       [--prompt-len 256] [--steps 8] [--out profile.txt]
+  python -m repro_torch.launch.profile --arch dbrx-132b --layers 6
 
-Builds the engine at the given config (full width unless ``--reduced``),
+Builds the engine at the given config (full width unless ``--reduced``;
+``--layers N`` cuts the depth to N layers, as a model too large for one
+card needs: dbrx-132b's 40 layers are 263 GB of bf16),
 prefills one batch, warms up, then runs ``--steps`` fused decode steps
 under ``torch.profiler`` (CPU and CUDA activities). Prints one JSON line:
 host wall ms per step, device-busy ms per step (the sum of kernel times)
@@ -17,6 +20,7 @@ which times the same step without the profiler.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -75,6 +79,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "config's own)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--steps", type=int, default=8)
@@ -84,6 +91,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     eng = ServingEngine(cfg, ServeConfig(
         max_seq=args.prompt_len + 2 * args.steps + 4), device=device)
     run = steady_burst(eng, args.batch, args.prompt_len)
@@ -108,7 +117,8 @@ def main(argv=None):
     top_host = sorted(rows, key=lambda r: -r[2])[:12]
     top_dev = sorted((r for r in rows if r[4]), key=lambda r: -r[3])[:12]
     print(json.dumps({
-        "arch": cfg.name, "batch": args.batch, "steps": n,
+        "arch": cfg.name, "layers": cfg.num_layers, "batch": args.batch,
+        "steps": n,
         "wall_ms_per_step": wall * 1e3 / n,
         "device_busy_ms_per_step": dev_total / 1e3 / n,
         "device_busy_share": dev_total / 1e6 / wall,

@@ -9,13 +9,25 @@
   python -m repro_torch.launch.serve --backend oracle --soft-error-ber 1e-6
   python -m repro_torch.launch.serve --prefix-cache --shared-prefix 8
   python -m repro_torch.launch.serve --reduced --device cpu ...   # CPU
+  python -m repro_torch.launch.serve --arch dbrx-132b --reduced --device cpu
 
 Runs on CUDA unless ``--device cpu``; ``--reduced`` shrinks the config
 (float32, a few narrow layers). ``--backend`` picks the write path from
 the ``repro_torch.memory`` registry (default: ``cuda`` on a CUDA device,
 ``lanes_ref`` on the CPU; ``oracle`` is the eager bit-unpacked write).
-Synthetic prompts are drawn with numpy and differ from the JAX
-launcher's; replay a trace for a like-for-like run.
+Synthetic prompts, the ``--monolithic`` batch and the ``--shared-prefix``
+head are the JAX launcher's (threefry ``randint`` off ``PRNGKey(seed +
+17 i)``, ``PRNGKey(0)`` and ``PRNGKey(1234)``).
+
+Trace-driven workloads (``repro_torch.workload``): ``--workload PRESET``
+generates the arrival stream from a preset (``--requests`` events, root
+seed ``--workload-seed``; byte-identical to the JAX launcher's),
+``--trace-record PATH`` saves whatever stream is served as a trace, and
+``--trace PATH`` replays one. Every stream prints its KV-write pressure:
+
+  python -m repro_torch.launch.serve --workload bursty --requests 12 \
+      --workload-seed 7 --trace-record stream.jsonl
+  python -m repro_torch.launch.serve --trace stream.jsonl   # same report
 
 ``--soft-error-ber`` turns on the post-write radiation-upset hook (the
 hardened driver protects sign and exponent unless
@@ -75,7 +87,10 @@ from repro_torch.serve import (ContinuousScheduler, ServeConfig,
                                ServingEngine, synthetic_requests)
 from repro_torch.telemetry import (Telemetry, render_report, write_metrics,
                                    write_timeline)
-from repro_torch.workload import TraceSource, load_trace
+from repro_torch import rng
+from repro_torch.workload import (TraceSource, load_trace, make_workload,
+                                  pressure_score, record_requests,
+                                  save_trace)
 
 
 def main(argv=None):
@@ -98,6 +113,16 @@ def main(argv=None):
                     help="single fixed batch, no arrival stream")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="replay a recorded workload trace (JSONL)")
+    ap.add_argument("--workload", default=None, metavar="PRESET",
+                    help="generate the arrival stream from a workload "
+                         "preset (steady, diurnal, bursty, heavy_tail, "
+                         "chat_batch, shared_system_prompt)")
+    ap.add_argument("--workload-seed", type=int, default=0,
+                    help="root seed of --workload (a (preset, seed) pair "
+                         "is the trace)")
+    ap.add_argument("--trace-record", default=None, metavar="PATH",
+                    help="record the served arrival stream as a "
+                         "replayable trace file")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--capacity", type=int, default=3)
     ap.add_argument("--arrival-every", type=int, default=2)
@@ -208,13 +233,15 @@ def main(argv=None):
     soft = dict(soft_error_ber=args.soft_error_ber,
                 soft_error_hardened=not args.soft_error_unhardened)
 
+    def tokens(seed: int, shape) -> torch.Tensor:
+        toks = rng.randint(rng.PRNGKey(seed), shape, 0, cfg.vocab_size)
+        return torch.from_numpy(toks.astype(np.int64)).to(device)
+
     if args.monolithic:
-        toks = np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (args.batch, args.prompt_len))
         eng = ServingEngine(cfg, serve_cfg(args.prompt_len + args.new_tokens,
                                            args.new_tokens), device=device)
         out, report = eng.generate(
-            {"tokens": torch.from_numpy(toks).to(device)},
+            {"tokens": tokens(0, (args.batch, args.prompt_len))},
             telemetry=telemetry)
         print(f"generated {tuple(out.shape)} tokens; first row: "
               f"{out[0, :8].tolist()}...")
@@ -234,13 +261,26 @@ def main(argv=None):
             export_telemetry(telemetry.snapshot())
         return
 
+    # continuous batching over an arrival stream: a replayed trace, a
+    # generated workload preset, or the synthetic default
+    if args.trace and args.workload:
+        ap.error("--trace and --workload are mutually exclusive")
+    trace = None
     if args.trace:
         trace = load_trace(args.trace)
+        stream_desc = f"trace {args.trace}"
+    elif args.workload:
+        trace = make_workload(args.workload, cfg, args.requests,
+                              seed=args.workload_seed)
+        stream_desc = (f"workload {args.workload} "
+                       f"(seed {args.workload_seed})")
+    else:
+        stream_desc = "synthetic"
+    if trace is not None:
         eng = ServingEngine(cfg, serve_cfg(trace.max_seq(),
                                            trace.max_new_tokens()),
                             device=device)
         reqs = TraceSource(trace, cfg, device)
-        print(f"workload: trace {args.trace}, {len(trace.events)} events")
     else:
         eng = ServingEngine(cfg, serve_cfg(args.prompt_len + args.new_tokens,
                                            args.new_tokens), device=device)
@@ -252,13 +292,22 @@ def main(argv=None):
         if args.shared_prefix > 0:
             # one common system prompt over every prompt's head: the
             # cross-request overlap the prefix cache exists to exploit
-            shared = torch.from_numpy(np.random.default_rng(1234).integers(
-                0, cfg.vocab_size, (1, args.shared_prefix))).to(device)
+            shared = tokens(1234, (1, args.shared_prefix))
             for r in reqs:
                 r.prompt["tokens"] = torch.cat(
                     [shared, r.prompt["tokens"][:, args.shared_prefix:]],
                     dim=1)
-        print(f"workload: synthetic, {len(reqs)} events")
+    # every stream is recordable and scorable: the synthetic one is read
+    # back into a trace (one host read per request, before serving)
+    rec = trace if trace is not None else record_requests(
+        reqs, cfg, meta={"source": "synthetic",
+                         "arrival_every": args.arrival_every})
+    if args.trace_record:
+        save_trace(rec, args.trace_record)
+        print(f"recorded trace -> {args.trace_record} "
+              f"({len(rec.events)} events)")
+    print(f"workload: {stream_desc}, {len(rec.events)} events, "
+          f"pressure={pressure_score(rec):.4f}")
     for spec in args.quality:
         app, _, level = spec.partition("=")
         eng.controller.tag("kv_request", app, Priority.coerce(level))

@@ -14,8 +14,10 @@ same names and values. Domains (who the parent key is):
                             ``SCHEDULER_SCRUB_PASS_OFFSET + n`` off it.
 
 The counter hash the lane kernels, their twins and the decay sampler
-share is keyed on (seed, flat index, bit plane). The checkpoint and
-workload streams belong to slices not ported yet.
+share is keyed on (seed, flat index, bit plane). The trace generators
+(``repro_torch.workload.generators``) fold ``WORKLOAD_OFFSET + i`` off
+the workload root key ``PRNGKey(seed)`` for event ``i``. The checkpoint
+streams belong to a slice not ported yet.
 """
 from __future__ import annotations
 
@@ -46,6 +48,10 @@ SCRUB_OFFSET = 3_000_017
 #: ContinuousScheduler's per-pass scrub key, folded off the decode root.
 SCHEDULER_SCRUB_PASS_OFFSET = 1_000_000
 
+#: trace generators: per-event sub-streams folded off the workload root
+#: key, so a generated trace is reproducible from (preset, seed) alone.
+WORKLOAD_OFFSET = 5_000_011
+
 #: the spacing of the per-index counter-hash sub-streams.
 INDEX_SPAN = 1_000_000
 
@@ -64,6 +70,9 @@ STREAMS: Tuple[Stream, ...] = (
     Stream("scheduler-scrub-pass", SCHEDULER_SCRUB_PASS_OFFSET,
            "serve-decode-root",
            "one key per scrub pass: fold_in(key, off + pass_index)",
+           span=INDEX_SPAN),
+    Stream("workload-event", WORKLOAD_OFFSET, "workload-root",
+           "trace generators per event: fold_in(root, off + event_index)",
            span=INDEX_SPAN),
 )
 

@@ -1,6 +1,7 @@
-"""Model API of the port. The dense and hybrid (recurrentgemma) families
-are ported for serving; every other family raises ``NotImplementedError``
-(later slices)."""
+"""Model API of the port. The dense, moe (dbrx, llama4-scout: the dense
+transformer with mixture-of-experts FFNs) and hybrid (recurrentgemma)
+families are ported for serving; every other family raises
+``NotImplementedError`` (later slices)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,7 +17,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 #: family -> the module serving it
-_FAMILIES = {"dense": transformer, "hybrid": rglru}
+_FAMILIES = {"dense": transformer, "moe": transformer, "hybrid": rglru}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -54,6 +55,17 @@ class ModelApi:
 
     def num_params(self) -> int:
         return param_count(self.descs())
+
+    def active_params_per_token(self) -> int:
+        """For MODEL_FLOPS = 6 * N_active * D accounting: the MoE layers
+        count their ``experts_per_token`` experts only."""
+        total = self.num_params()
+        cfg = self.cfg
+        if not cfg.num_experts:
+            return total
+        per_expert = 3 * cfg.d_model * cfg.d_ff * cfg.num_layers
+        return (total - per_expert * cfg.num_experts
+                + per_expert * cfg.experts_per_token)
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
         return self._module.prefill(params, batch["tokens"], self.cfg,

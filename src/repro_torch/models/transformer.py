@@ -1,6 +1,10 @@
-"""Decoder-only transformer LM, dense family: prefill and decode_step.
+"""Decoder-only transformer LM, dense and MoE families: prefill and
+decode_step.
 
-The counterpart of ``repro.models.transformer``'s serving half. Layer
+The counterpart of ``repro.models.transformer``'s serving half. With
+``cfg.num_experts`` each layer's FFN is the mixture of experts
+(``repro_torch.models.moe``, whose aux values serving discards, as the
+reference does); otherwise the gated MLP. Layer
 ``l`` uses window ``window_pattern[l % P]`` and the cache leaf
 ``slot{l % P}`` at group index ``l // P``; cache leaves are
 (n_groups, B, C, K, h) as in the JAX package. Depth is a Python loop.
@@ -13,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamDesc, embed_descs, embed_tokens,
                                        mlp_apply, mlp_descs, rms_norm,
                                        unembed)
@@ -30,8 +35,11 @@ def descs(cfg: ModelConfig) -> Dict[str, Any]:
         "attn": attn.attn_descs(cfg, L),
         "ln_attn": ParamDesc((L, D), ("layers", "norm_scale")),
         "ln_mlp": ParamDesc((L, D), ("layers", "norm_scale")),
-        "mlp": mlp_descs(cfg, L),
     }
+    if cfg.num_experts:
+        layer["moe"] = moe_mod.moe_descs(cfg, L)
+    else:
+        layer["mlp"] = mlp_descs(cfg, L)
     if cfg.use_post_norms:
         layer["ln_post_attn"] = ParamDesc((L, D), ("layers", "norm_scale"))
         layer["ln_post_mlp"] = ParamDesc((L, D), ("layers", "norm_scale"))
@@ -68,6 +76,12 @@ def _layer_params(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
             for k, v in layers.items()}
 
 
+def _ffn(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.num_experts:
+        return moe_mod.moe_apply(lp["moe"], x, cfg)[0]
+    return mlp_apply(lp["mlp"], x, cfg.mlp_act)
+
+
 def _block(h, lp, cfg: ModelConfig, attend):
     """One pre-norm (optionally sandwich-norm) layer; ``attend(q, k, v)``
     returns (attention output, k, v to cache)."""
@@ -77,7 +91,7 @@ def _block(h, lp, cfg: ModelConfig, attend):
     if cfg.use_post_norms:
         a = rms_norm(a, lp["ln_post_attn"], eps)
     h = h + a
-    m = mlp_apply(lp["mlp"], rms_norm(h, lp["ln_mlp"], eps), cfg.mlp_act)
+    m = _ffn(lp, rms_norm(h, lp["ln_mlp"], eps), cfg)
     if cfg.use_post_norms:
         m = rms_norm(m, lp["ln_post_mlp"], eps)
     return h + m, k, v

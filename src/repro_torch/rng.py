@@ -18,11 +18,25 @@ types off:
   * ``bits(key, shape)`` -> ``y0 ^ y1`` of ``threefry2x32(key, (0, i))``
     for the flat (row-major) index ``i`` of each element;
   * ``uniform(key, shape)`` -> ``f32((bits >> 9) | 0x3F800000) - 1``, the
-    float32 draw of ``jax.random.uniform``;
+    float32 draw of ``jax.random.uniform``; with ``dtype="bfloat16"`` the
+    8-bit draw (the low byte of ``bits``: JAX draws 8 bits for a type of
+    fewer than 8 mantissa bits) ``bf16(((b & 0xFF) >> 1) | 0x3F80) - 1``;
+    then ``max(minval, u * (maxval - minval) + minval)`` in the dtype;
   * ``bernoulli(key, p, shape)`` -> ``uniform < f32(p)``, the ``mode="low"``
-    draw of ``jax.random.bernoulli``.
+    draw of ``jax.random.bernoulli``;
+  * ``randint(key, shape, lo, hi)`` -> int32 draws of
+    ``jax.random.randint``: two ``bits`` draws off ``split(key)``,
+    combined modulo the span in wrapping uint32 arithmetic;
+  * ``gumbel`` / ``categorical`` -> ``-log(-log(uniform(minval=tiny)))``
+    and ``argmax(gumbel + logits)`` over the last axis (``mode="low"``).
+    The uniforms are bit-exact; ``log`` is the platform's (XLA's float32
+    ``log`` differs from numpy's and torch's in the last bit of a quarter
+    to a third of the values; in bfloat16 the rounding hides it), so a
+    float32 sample moves only where two candidates tie within that.
 
-Keys are ``(2,)`` numpy uint32 arrays. The host versions are numpy; the
+Keys are ``(2,)`` numpy uint32 arrays. The host versions are numpy (a
+bfloat16 draw comes back as float32 values that bfloat16 represents:
+numpy has no bfloat16); the
 ``*_t`` versions draw the same words on a torch device (the eager oracle
 and the soft-error hook draw one word per stored bit, tens of millions
 per admission): the counter runs there, in int64 ops masked to 32 bits,
@@ -35,6 +49,7 @@ import torch
 
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
+M32 = 0xFFFFFFFF
 
 
 def _rotl(x: np.ndarray, r: int) -> np.ndarray:
@@ -105,11 +120,104 @@ def bernoulli(key: np.ndarray, p: float, shape) -> np.ndarray:
     return uniform(key, shape) < np.float32(p)
 
 
+I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
+#: the smallest normal float32, the Gumbel draw's ``minval`` (bfloat16
+#: shares float32's exponent range, so its smallest normal too)
+TINY = float(np.finfo(np.float32).tiny)
+
+
+def randint(key: np.ndarray, shape, minval: int, maxval: int
+            ) -> np.ndarray:
+    """int32 draws in ``[minval, maxval)``, as ``jax.random.randint``.
+    ``maxval <= minval`` gives ``minval``. Bounds outside int32 raise
+    ``OverflowError``, as JAX's do with 64-bit types off (so its
+    ``maxval_out_of_range`` widening of the span never applies)."""
+    minval, maxval = int(minval), int(maxval)
+    for v in (minval, maxval):
+        if not I32_MIN <= v <= I32_MAX:
+            raise OverflowError(f"randint bound {v} is outside int32")
+    k1, k2 = split(key, 2)
+    higher, lower = bits(k1, shape), bits(k2, shape)
+    span = np.uint32(1 if maxval <= minval else (maxval - minval) & M32)
+    with np.errstate(over="ignore"):
+        # (a * b) % N = ((a % N) * (b % N)) % N, every product wrapping
+        # at 32 bits as JAX's uint32 lax ops do (at spans of 2^16 and
+        # more the multiplier wraps to 0)
+        multiplier = np.uint32(2 ** 16) % span
+        multiplier = (multiplier * multiplier) % span
+        offset = ((higher % span) * multiplier + lower % span) % span
+    out = (np.int64(minval) + offset.astype(np.int64)) & M32
+    return out.astype(np.uint32).view(np.int32).reshape(shape)
+
+
+def _dtype_name(dtype) -> str:
+    """'float32' / 'bfloat16' of a torch or numpy dtype or its name."""
+    name = str(dtype).replace("torch.", "")
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"unsupported draw dtype {dtype}")
+    return name
+
+
+def _round_bf16(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to the nearest bfloat16 (ties to even),
+    kept as float32 (finite inputs)."""
+    b = np.asarray(x, np.float32).view(np.uint32)
+    with np.errstate(over="ignore"):
+        b = (b + np.uint32(0x7FFF) + ((b >> np.uint32(16)) & np.uint32(1))
+             ) & np.uint32(0xFFFF0000)
+    return b.view(np.float32)
+
+
+def _bf16_bits(key: np.ndarray, shape) -> np.ndarray:
+    """The bfloat16 draw's unit floats in [0, 1) as float32 values."""
+    b = bits(key, shape) & np.uint32(0xFF)
+    return (((b >> np.uint32(1)) | np.uint32(0x3F80)) << np.uint32(16)
+            ).view(np.float32) - np.float32(1.0)
+
+
+def uniform(key: np.ndarray, shape, dtype="float32", minval: float = 0.0,
+            maxval: float = 1.0) -> np.ndarray:
+    """Draws in [minval, maxval) of ``shape``, as ``jax.random.uniform``
+    in ``dtype`` (float32 or bfloat16, each step rounded to it)."""
+    if _dtype_name(dtype) == "float32":
+        u = _to_unit_float(bits(key, shape))
+        lo, hi = np.float32(minval), np.float32(maxval)
+        if lo == 0.0 and hi == 1.0:
+            return u
+        # XLA contracts the scale and shift into one fused multiply-add:
+        # the float64 product is exact and the sum rounds, then rounds to
+        # float32 (a double rounding, which can differ from the fused
+        # one at a tie; at [0, 1) and [tiny, 1) both are exact)
+        return np.maximum(lo, (u.astype(np.float64) * (hi - lo)
+                               + lo).astype(np.float32))
+    r = _round_bf16
+    lo, hi = r(np.float32(minval)), r(np.float32(maxval))
+    u = _bf16_bits(key, shape)
+    return np.maximum(lo, r(r(u * r(hi - lo)) + lo))
+
+
+def gumbel(key: np.ndarray, shape, dtype="float32") -> np.ndarray:
+    """``jax.random.gumbel(..., mode="low")``: -log(-log(u)), u drawn in
+    [tiny, 1), each step rounded to ``dtype``."""
+    u = uniform(key, shape, dtype, minval=TINY)
+    r = _round_bf16 if _dtype_name(dtype) == "bfloat16" else (lambda x: x)
+    return -r(np.log(-r(np.log(u))))
+
+
+def categorical(key: np.ndarray, logits: np.ndarray, dtype="float32"
+                ) -> np.ndarray:
+    """``jax.random.categorical`` over the last axis: the index of the
+    largest ``gumbel + logits`` (the sum rounded to ``dtype``)."""
+    logits = np.asarray(logits, np.float32)
+    g = gumbel(key, logits.shape, dtype) + logits
+    if _dtype_name(dtype) == "bfloat16":
+        g = _round_bf16(g)
+    return np.argmax(g, axis=-1)
+
+
 # --------------------------------------------------------------------------
 # the same draws on a torch device
 # --------------------------------------------------------------------------
-
-M32 = 0xFFFFFFFF
 
 
 def counter_bits_t(key: np.ndarray, ctr: torch.Tensor) -> torch.Tensor:
@@ -148,8 +256,38 @@ def unit_float_t(b: torch.Tensor) -> torch.Tensor:
         torch.float32) - 1.0
 
 
-def uniform_t(key: np.ndarray, shape, device) -> torch.Tensor:
-    return unit_float_t(bits_t(key, shape, device))
+def uniform_t(key: np.ndarray, shape, device, dtype=torch.float32,
+              minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``uniform(key, shape, dtype, minval, maxval)`` on ``device`` as a
+    tensor of ``dtype``; the bounds are host scalars."""
+    b = bits_t(key, shape, device)
+    if _dtype_name(dtype) == "float32":
+        u = unit_float_t(b)
+        if minval == 0.0 and maxval == 1.0:
+            return u
+        lo, hi = np.float32(minval), np.float32(maxval)
+        # the fused multiply-add, as the host draw emulates it
+        return torch.clamp_min((u.double() * float(hi - lo) + float(lo)
+                                ).float(), float(lo))
+    u = (((b & 0xFF) >> 1) | 0x3F80).to(torch.int16).view(
+        torch.bfloat16) - 1.0
+    lo, hi = (torch.tensor(v, dtype=torch.bfloat16)
+              for v in (minval, maxval))
+    return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+def gumbel_t(key: np.ndarray, shape, device, dtype=torch.float32
+             ) -> torch.Tensor:
+    """``gumbel`` on ``device`` in ``dtype`` (torch rounds each step)."""
+    u = uniform_t(key, shape, device, dtype, minval=TINY)
+    return -torch.log(-torch.log(u))
+
+
+def categorical_t(key: np.ndarray, logits: torch.Tensor) -> torch.Tensor:
+    """``categorical`` drawn on the logits' device in their dtype: the
+    draw reads nothing back, so a sampled decode burst stays sync-free."""
+    g = gumbel_t(key, logits.shape, logits.device, logits.dtype)
+    return torch.argmax(g + logits, dim=-1)
 
 
 def bernoulli_t(key: np.ndarray, p: float, shape, device) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Serving engine: batched prefill + decode with EXTENT-approximate KV writes.
 
-The counterpart of ``repro.serve.engine`` for the greedy, extent-only
-path of the ported families (dense; hybrid, whose float32 recurrent
-states are EXACT leaves stored as they are). The engine diffs cache
+The counterpart of ``repro.serve.engine`` for the extent path of the
+ported families (dense and moe; hybrid, whose float32 recurrent states
+are EXACT leaves stored as they are). The engine diffs cache
 trees: after a decode step the approximate write of (old cache, new
 cache) is exactly the paper's write semantics — untouched slots are
 bit-identical (zero energy under CMP) and the freshly written ring
@@ -11,10 +11,15 @@ resolved at construction; the backend is a registry name (``cuda`` on a
 CUDA device, ``lanes_ref`` on the CPU by default).
 
 A decode *burst* of ``n`` steps is a Python loop of fused steps
-(decode -> column write -> retention decay -> greedy sample -> stats)
+(decode -> column write -> retention decay -> sample -> stats)
 that never reads the device: the RNG key schedule runs on the host
 (``repro_torch.rng``), every carried value stays on the device, and
-stats accumulate into one device-resident ``WriteStats``. On a CUDA device the burst runs under
+stats accumulate into one device-resident ``WriteStats``. Sampling is
+greedy (argmax) by default; with ``ServeConfig(greedy=False)`` it is
+``jax.random.categorical``'s Gumbel argmax over ``logits / temperature``,
+its uniforms drawn on the device from the step's sampling key (the
+third of the step's three-way split, as in the reference), so the
+sampled burst reads nothing back either. On a CUDA device the burst runs under
 ``torch.cuda.set_sync_debug_mode("error")``, so any host sync inside it
 raises — the port's form of the reference's transfer guard.
 
@@ -81,6 +86,10 @@ class ServeConfig:
     max_seq: int = 256
     max_new_tokens: int = 32
     extent_enabled: bool = True
+    #: argmax sampling; False draws jax.random.categorical's Gumbel
+    #: argmax of logits / temperature from each step's sampling key
+    greedy: bool = True
+    temperature: float = 1.0
     seed: int = 0
     #: write-path backend (a repro_torch.memory registry name); None picks
     #: the kernel ("cuda") on a CUDA device and the twin on the CPU
@@ -132,8 +141,8 @@ def mask_rows(new_tree: Any, old_tree: Any, active: torch.Tensor) -> Any:
 
 
 class ServingEngine:
-    """Batched autoregressive serving (greedy sampling) of any ported
-    family: the engine only diffs cache trees."""
+    """Batched autoregressive serving of any ported family: the engine
+    only diffs cache trees."""
 
     def __init__(self, cfg: ModelConfig, serve_cfg: ServeConfig,
                  params: Optional[Any] = None, *, device=None,
@@ -200,15 +209,12 @@ class ServingEngine:
     # ---------------------------------------------------------- fused steps
     def prefill(self, params, batch, old_rows, key: np.ndarray, vectors,
                 alias_cols: Optional[torch.Tensor] = None):
-        """Fused prefill -> extent write -> first greedy token.
+        """Fused prefill -> extent write -> first token.
         ``old_rows=None`` diffs against zeros (a cold cache); otherwise
         against the pool's current rows for the admitted slots.
         ``alias_cols`` ((B,) int64, with ``old_rows``) keeps each slot's
         leading linked columns as they are in ``old_rows``."""
-        # the reference's three-way split; the third (sampling) key waits
-        # for non-greedy sampling
-        keys = rng.split(key, 3)
-        key, k_write = keys[0], keys[1]
+        key, k_write, k_sample = rng.split(key, 3)
         logits, cache = self.api.prefill(params, batch, self.scfg.max_seq)
         acc = WriteStats.zero(self.device)
         if self.scfg.extent_enabled:
@@ -216,7 +222,7 @@ class ServingEngine:
                    else T.tree_map(torch.zeros_like, cache))
             cache, acc = self.plan.write(k_write, old, cache, vectors,
                                          alias_cols=alias_cols)
-        return self._sample(logits), cache, key, acc
+        return self._sample(k_sample, logits), cache, key, acc
 
     def splice_rows(self, old_rows, owner_rows, alias_cols: torch.Tensor):
         """Graft the link owners' resident prefix columns into extracted
@@ -246,8 +252,7 @@ class ServingEngine:
         toks = []
         with _no_host_sync(self.device):
             for _ in range(n):
-                keys = rng.split(key, 3)
-                key, k_write = keys[0], keys[1]
+                key, k_write, k_sample = rng.split(key, 3)
                 logits, new_cache = self.api.decode_step(
                     params, tok, cache, pos, self.scfg.max_seq)
                 new_cache = mask_rows(new_cache, cache, active)
@@ -272,7 +277,8 @@ class ServingEngine:
                     life = self.life_plan.clear_written(life, pos, active)
                     new_cache, life = self.life_plan.advance(
                         k_write, new_cache, life, rvec)
-                tok = torch.where(active, self._sample(logits), tok)
+                tok = torch.where(active, self._sample(k_sample, logits),
+                                  tok)
                 cache, pos = new_cache, pos + act_i
                 toks.append(tok)
         return tok, cache, pos, key, acc, slot_acc, life, torch.stack(toks)
@@ -293,8 +299,10 @@ class ServingEngine:
                           enabled=enabled, cols=cols, cursor=cursor,
                           addr=addr, slot_mask=slot_mask)
 
-    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        return torch.argmax(logits, dim=-1)
+    def _sample(self, key: np.ndarray, logits: torch.Tensor) -> torch.Tensor:
+        if self.scfg.greedy:
+            return torch.argmax(logits, dim=-1)
+        return rng.categorical_t(key, logits / self.scfg.temperature)
 
     # ------------------------------------------------------------ generation
     def generate(self, batch: Dict[str, torch.Tensor],

@@ -1,7 +1,7 @@
 """Continuous-batching request scheduler over the slot-pool KV cache.
 
-The counterpart of ``repro.serve.scheduler`` for the greedy, extent-only
-path of the ported families (dense, hybrid): admission groups (one fused
+The counterpart of ``repro.serve.scheduler`` for the extent path of the
+ported families (dense, moe, hybrid): admission groups (one fused
 prefill per prompt shape), decode bursts up to the next scheduler event
 (earliest completion or next arrival), per-request quality resolved
 through the ``ExtentTable`` with the pool-wide floor ``max(policy,
@@ -100,15 +100,18 @@ def synthetic_requests(cfg, n: int, *, device, prompt_len: int = 12,
                        new_tokens: int = 8, arrival_every: int = 0,
                        seed: int = 0, app_ids: Sequence = (),
                        qualities: Sequence = ()) -> List[Request]:
-    """Deterministic random-token arrival stream. Prompts are drawn with
-    numpy from ``seed + 17 * i`` — not JAX's ``randint``, so they differ
-    from the reference's synthetic stream (replay a trace for parity)."""
+    """Deterministic random-token arrival stream, the reference's: prompt
+    ``i`` is ``randint(PRNGKey(seed + 17 * i), (1, prompt_len), 0,
+    vocab)`` (the host threefry draw). ``arrival_every=k`` staggers
+    arrivals k decode steps apart (0 = all at once); ``app_ids`` /
+    ``qualities`` cycle over the requests when non-empty."""
     out = []
     for i in range(n):
-        toks = np.random.default_rng(seed + 17 * i).integers(
-            0, cfg.vocab_size, (1, prompt_len))
+        toks = rng.randint(rng.PRNGKey(seed + 17 * i), (1, prompt_len), 0,
+                           cfg.vocab_size)
         out.append(Request(
-            rid=i, prompt={"tokens": torch.from_numpy(toks).to(device)},
+            rid=i, prompt={"tokens": torch.from_numpy(
+                toks.astype(np.int64)).to(device)},
             new_tokens=new_tokens, arrival=i * arrival_every,
             app_id=app_ids[i % len(app_ids)] if app_ids else None,
             quality=qualities[i % len(qualities)] if qualities else None,
