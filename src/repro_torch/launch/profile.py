@@ -12,7 +12,9 @@ under ``torch.profiler`` (CPU and CUDA activities). Prints one JSON line:
 host wall ms per step, device-busy ms per step (the sum of kernel times)
 and the busy share, the extent_write kernel's share, and the top ops by
 host time and by device time. ``--out`` also writes the full
-``key_averages`` table. Needs a CUDA device.
+``key_averages`` table. A vlm's prompts carry their image embeddings
+and an audio model's whisper's 1500 frames (``modal_leaves``). Needs a
+CUDA device.
 
 ``steady_burst`` is the decode-step setup shared with ``chip_smoke.py``,
 which times the same step without the profiler.
@@ -24,6 +26,7 @@ import dataclasses
 import json
 import time
 from pathlib import Path
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -34,7 +37,9 @@ from repro_torch.core.energy_model import zero_slot_stats
 from repro_torch.core.priority import Priority
 from repro_torch.device import resolve_device
 from repro_torch.memory import WriteStats
+from repro_torch.models import whisper
 from repro_torch.serve import ServeConfig, ServingEngine
+from repro_torch.serve.scheduler import modal_leaves
 
 
 def _dev_us(evt) -> float:
@@ -45,9 +50,11 @@ def _dev_us(evt) -> float:
 
 
 def steady_burst(eng: ServingEngine, batch: int, prompt_len: int,
-                 seed: int = 0):
+                 seed: int = 0, extra: Optional[Dict[str, Any]] = None):
     """Prefill a full pool of ``batch`` random prompts of ``prompt_len``
-    tokens (drawn from ``seed``) at the LOW floor; returns ``run(n)``,
+    tokens (drawn from ``seed``; ``extra``: the prompt's other leaves, a
+    vlm's ``image_embeds`` or an audio model's ``frames``) at the LOW
+    floor; returns ``run(n)``,
     which decodes ``n`` fused steps from that state (with the retention
     decay and the wear layer, through the identity map, when the engine
     has them on). The state is not carried over, so every call repeats
@@ -56,9 +63,11 @@ def steady_burst(eng: ServingEngine, batch: int, prompt_len: int,
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, eng.cfg.vocab_size, (batch, prompt_len))).to(device)
     vec = eng.vectors_for_floor(Priority.LOW)
-    tok, cache, key, _ = eng.prefill(eng.params, {"tokens": toks}, None,
+    prompt = {"tokens": toks, **(extra or {})}
+    tok, cache, key, _ = eng.prefill(eng.params, prompt, None,
                                      rng.PRNGKey(seed), vec)
-    pos = torch.full((batch,), prompt_len, dtype=torch.int64, device=device)
+    pos = torch.full((batch,), eng.prompt_len(prompt), dtype=torch.int64,
+                     device=device)
     active = torch.ones((batch,), dtype=torch.bool, device=device)
     life = rvec = None
     if eng.life_plan is not None:
@@ -93,9 +102,14 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    # a vlm's prompts carry their image columns, an audio model's its
+    # 30-second window of frames
+    extra = modal_leaves(cfg, 1, device, batch=args.batch,
+                         frames=whisper.ENC_LEN)
+    image = cfg.num_image_tokens if cfg.family == "vlm" else 0
     eng = ServingEngine(cfg, ServeConfig(
-        max_seq=args.prompt_len + 2 * args.steps + 4), device=device)
-    run = steady_burst(eng, args.batch, args.prompt_len)
+        max_seq=args.prompt_len + 2 * args.steps + 4 + image), device=device)
+    run = steady_burst(eng, args.batch, args.prompt_len, extra=extra)
     run(3)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,

@@ -10,6 +10,9 @@
   python -m repro_torch.launch.serve --prefix-cache --shared-prefix 8
   python -m repro_torch.launch.serve --reduced --device cpu ...   # CPU
   python -m repro_torch.launch.serve --arch dbrx-132b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch mamba2-2.7b
+  python -m repro_torch.launch.serve --arch llava-next-mistral-7b
+  python -m repro_torch.launch.serve --arch whisper-large-v3 --monolithic
 
 Runs on CUDA unless ``--device cpu``; ``--reduced`` shrinks the config
 (float32, a few narrow layers). ``--backend`` picks the write path from
@@ -17,7 +20,11 @@ the ``repro_torch.memory`` registry (default: ``cuda`` on a CUDA device,
 ``lanes_ref`` on the CPU; ``oracle`` is the eager bit-unpacked write).
 Synthetic prompts, the ``--monolithic`` batch and the ``--shared-prefix``
 head are the JAX launcher's (threefry ``randint`` off ``PRNGKey(seed +
-17 i)``, ``PRNGKey(0)`` and ``PRNGKey(1234)``).
+17 i)``, ``PRNGKey(0)`` and ``PRNGKey(1234)``); a vlm or audio prompt's
+image embeddings or frames are ``normal`` draws off ``PRNGKey(seed + 17 i
++ 1)`` (``--monolithic``: ``PRNGKey(1)``). The audio family serves only
+``--monolithic``: its continuous modes exit with the scheduler's refusal,
+as the reference's scheduler fails on it.
 
 Trace-driven workloads (``repro_torch.workload``): ``--workload PRESET``
 generates the arrival stream from a preset (``--requests`` events, root
@@ -85,6 +92,7 @@ from repro_torch.memory import available_backends
 from repro_torch.reliability import make_scrub_policy, make_wear_policy
 from repro_torch.serve import (ContinuousScheduler, ServeConfig,
                                ServingEngine, synthetic_requests)
+from repro_torch.serve.scheduler import AUDIO_REFUSAL, modal_leaves
 from repro_torch.telemetry import (Telemetry, render_report, write_metrics,
                                    write_timeline)
 from repro_torch import rng
@@ -237,12 +245,15 @@ def main(argv=None):
         toks = rng.randint(rng.PRNGKey(seed), shape, 0, cfg.vocab_size)
         return torch.from_numpy(toks.astype(np.int64)).to(device)
 
+    # the vlm's image columns lead every prompt in the cache
+    vlm_extra = cfg.num_image_tokens if cfg.family == "vlm" else 0
     if args.monolithic:
-        eng = ServingEngine(cfg, serve_cfg(args.prompt_len + args.new_tokens,
-                                           args.new_tokens), device=device)
-        out, report = eng.generate(
-            {"tokens": tokens(0, (args.batch, args.prompt_len))},
-            telemetry=telemetry)
+        eng = ServingEngine(cfg, serve_cfg(
+            args.prompt_len + args.new_tokens + vlm_extra, args.new_tokens),
+            device=device)
+        prompt = {"tokens": tokens(0, (args.batch, args.prompt_len)),
+                  **modal_leaves(cfg, 1, device, batch=args.batch)}
+        out, report = eng.generate(prompt, telemetry=telemetry)
         print(f"generated {tuple(out.shape)} tokens; first row: "
               f"{out[0, :8].tolist()}...")
         if not args.no_extent:
@@ -265,6 +276,8 @@ def main(argv=None):
     # generated workload preset, or the synthetic default
     if args.trace and args.workload:
         ap.error("--trace and --workload are mutually exclusive")
+    if cfg.family == "audio":
+        ap.error(AUDIO_REFUSAL)
     trace = None
     if args.trace:
         trace = load_trace(args.trace)
@@ -277,13 +290,14 @@ def main(argv=None):
     else:
         stream_desc = "synthetic"
     if trace is not None:
-        eng = ServingEngine(cfg, serve_cfg(trace.max_seq(),
+        eng = ServingEngine(cfg, serve_cfg(trace.max_seq() + vlm_extra,
                                            trace.max_new_tokens()),
                             device=device)
         reqs = TraceSource(trace, cfg, device)
     else:
-        eng = ServingEngine(cfg, serve_cfg(args.prompt_len + args.new_tokens,
-                                           args.new_tokens), device=device)
+        eng = ServingEngine(cfg, serve_cfg(
+            args.prompt_len + args.new_tokens + vlm_extra, args.new_tokens),
+            device=device)
         apps = [a for a in args.apps.split(",") if a] or [None]
         reqs = synthetic_requests(
             cfg, args.requests, device=device, prompt_len=args.prompt_len,

@@ -1,7 +1,9 @@
-"""Model API of the port. The dense, moe (dbrx, llama4-scout: the dense
-transformer with mixture-of-experts FFNs) and hybrid (recurrentgemma)
-families are ported for serving; every other family raises
-``NotImplementedError`` (later slices)."""
+"""Model API of the port over every family the reference serves: dense
+and moe (the transformer; moe with mixture-of-experts FFNs), hybrid
+(recurrentgemma), ssm (mamba2), vlm (llava: the transformer behind a
+projected image) and audio (whisper, encoder-decoder). ``prefill`` takes
+the whole batch dict for vlm (``image_embeds``) and audio (``frames``),
+the tokens for the others."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,14 +12,17 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rglru, transformer
+from repro_torch.models import rglru, ssm, transformer, vlm, whisper
 from repro_torch.models.layers import init_from_descs, param_count
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 #: family -> the module serving it
-_FAMILIES = {"dense": transformer, "moe": transformer, "hybrid": rglru}
+_FAMILIES = {"dense": transformer, "moe": transformer, "hybrid": rglru,
+             "ssm": ssm, "vlm": vlm, "audio": whisper}
+#: families whose prefill takes the whole batch (multimodal leaves)
+_BATCH_PREFILL = ("vlm", "audio")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -30,9 +35,7 @@ class ModelApi:
 
     def __post_init__(self):
         if self.cfg.family not in _FAMILIES:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet (ported: "
-                f"{', '.join(_FAMILIES)})")
+            raise ValueError(self.cfg.family)
 
     @property
     def _module(self):
@@ -68,6 +71,8 @@ class ModelApi:
                 + per_expert * cfg.experts_per_token)
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
+        if self.cfg.family in _BATCH_PREFILL:
+            return self._module.prefill(params, batch, self.cfg, max_seq)
         return self._module.prefill(params, batch["tokens"], self.cfg,
                                     max_seq)
 
@@ -83,7 +88,10 @@ class ModelApi:
         return self._module.cache_axes(self.cfg)
 
     def prompt_len(self, batch: Dict[str, torch.Tensor]) -> int:
-        return batch["tokens"].shape[1]
+        """Cache columns a prompt fills: the vlm's image columns lead its
+        tokens."""
+        extra = self.cfg.num_image_tokens if self.cfg.family == "vlm" else 0
+        return batch["tokens"].shape[1] + extra
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:

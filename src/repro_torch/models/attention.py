@@ -1,5 +1,6 @@
-"""Attention for the dense family: GQA, per-layer windows, logit softcap,
-QKV bias, plain torch ops (the JAX package's attention is plain jnp too).
+"""Attention: GQA, per-layer windows, logit softcap, QKV bias, causal or
+full (whisper's encoder and cross-attention), plain torch ops (the JAX
+package's attention is plain jnp too).
 
 Layouts follow the JAX package: q (B,S,H,h), k/v (B,S,K,h); a layer's
 ring cache is (B,C,K,h), slot ``i`` holding absolute position
@@ -77,12 +78,30 @@ def sdpa_block(q, k, v, mask: Optional[torch.Tensor], scale: float,
 
 
 def attention(q, k, v, *, window: int, softcap_val: float,
-              positions: torch.Tensor) -> torch.Tensor:
-    """Causal windowed self-attention over one sequence: key j is visible
-    to query i iff 0 <= i - j < window."""
-    d = positions[:, :, None] - positions[:, None, :]
-    mask = (d >= 0) & (d < window)
-    return sdpa_block(q, k, v, mask, q.shape[-1] ** -0.5, softcap_val)
+              positions: Optional[torch.Tensor] = None, causal: bool = True,
+              k_positions: Optional[torch.Tensor] = None,
+              q_chunk: int = 1024) -> torch.Tensor:
+    """Exact attention of q (B,S,H,h) over k/v (B,T,K,h), ``q_chunk``
+    query rows at a time (each row's softmax is whole, so the chunking
+    bounds the live logits to (B,K,G,q_chunk,T) without changing a row).
+    Causal: key j is visible to query i iff 0 <= q_pos_i - k_pos_j <
+    window (``k_positions`` defaults to ``positions``). Not causal (the
+    encoder, cross-attention): every key is visible and the positions
+    and window are unused."""
+    S = q.shape[1]
+    scale = q.shape[-1] ** -0.5
+    if causal and k_positions is None:
+        k_positions = positions
+    outs = []
+    for c0 in range(0, S, q_chunk):
+        mask = None
+        if causal:
+            d = (positions[:, c0:c0 + q_chunk, None]
+                 - k_positions[:, None, :])
+            mask = (d >= 0) & (d < window)
+        outs.append(sdpa_block(q[:, c0:c0 + q_chunk], k, v, mask, scale,
+                               softcap_val))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def cache_capacity(window: int, max_seq: int) -> int:

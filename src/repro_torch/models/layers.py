@@ -60,6 +60,13 @@ def param_count(descs: Any) -> int:
     return sum(math.prod(d.shape) for d in T.leaves(descs))
 
 
+def layer_at(stack: Dict[str, Any], l: int) -> Dict[str, Any]:
+    """Layer ``l`` of a tree of per-layer stacks (leading ``layers``
+    axis): the same tree with every leaf indexed at ``l``."""
+    return {k: (layer_at(v, l) if isinstance(v, dict) else v[l])
+            for k, v in stack.items()}
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0.0:
         return x
@@ -87,6 +94,26 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def sinusoid_positions(seq_len: int, d_model: int, offset: int = 0,
+                       device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal position encodings (seq_len, d_model) in
+    float32, [sin | cos] over ``d_model // 2`` frequencies whose exponent
+    divides by ``max(1, half - 1)``, as in the reference."""
+    pos = torch.arange(offset, offset + seq_len, dtype=torch.float32,
+                       device=device)
+    return sinusoid_at(pos, d_model)
+
+
+def sinusoid_at(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The encodings of the positions ``pos`` (any shape): (..., d_model)
+    float32."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=pos.device) / max(1, half - 1))
+    ang = pos.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def mlp_descs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDesc]:

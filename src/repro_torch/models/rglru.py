@@ -33,8 +33,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.local_attention import ops as local_ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (ParamDesc, embed_descs, embed_tokens,
-                                       mlp_apply, mlp_descs, rms_norm,
-                                       unembed)
+                                       layer_at, mlp_apply, mlp_descs,
+                                       rms_norm, unembed)
 
 _C_GATE = 8.0  # RG-LRU "c" constant
 
@@ -99,10 +99,6 @@ def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
     return {"rec_state": ("layers", "batch", "mlp"),
             "rec_conv": ("layers", "batch", None, "mlp"),
             "att": {"k": kv, "v": kv}}
-
-
-def _at(stack: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
-    return {k: v[i] for k, v in stack.items()}
 
 
 def _rglru_gates(lp, u: torch.Tensor):
@@ -195,7 +191,7 @@ def _run_serving(params, h, cfg: ModelConfig, positions, cache, pos,
             if cache is not None:
                 st = cache["rec_state"][i_rec]
                 cv = cache["rec_conv"][i_rec]
-            h, st, cv = rec_block(_at(params["rec"], i_rec), h, cfg,
+            h, st, cv = rec_block(layer_at(params["rec"], i_rec), h, cfg,
                                   state=st, conv_state=cv)
             states.append(st)
             convs.append(cv)
@@ -204,14 +200,14 @@ def _run_serving(params, h, cfg: ModelConfig, positions, cache, pos,
             ring = None
             if cache is not None:
                 ring = (cache["att"]["k"][i_att], cache["att"]["v"][i_att])
-            h, k, v = att_block(_at(params["att"], i_att), h, cfg,
+            h, k, v = att_block(layer_at(params["att"], i_att), h, cfg,
                                 positions, cache=ring, pos=pos)
             if cache is None:
                 k, v = attn.prefill_cache(k, v, capacity)
             ks.append(k)
             vs.append(v)
             i_att += 1
-        h = _mlp_block(_at(params["mlp"], l), h, cfg)
+        h = _mlp_block(layer_at(params["mlp"], l), h, cfg)
     new_cache = {"rec_state": torch.stack(states),
                  "rec_conv": torch.stack(convs),
                  "att": {"k": torch.stack(ks), "v": torch.stack(vs)}}

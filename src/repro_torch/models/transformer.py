@@ -11,7 +11,7 @@ reference does); otherwise the gated MLP. Layer
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -19,8 +19,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamDesc, embed_descs, embed_tokens,
-                                       mlp_apply, mlp_descs, rms_norm,
-                                       unembed)
+                                       layer_at, mlp_apply, mlp_descs,
+                                       rms_norm, unembed)
 
 
 def _groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -71,11 +71,6 @@ def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
     return {name: {"k": kv, "v": kv} for name in cache_spec(cfg, 8)}
 
 
-def _layer_params(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
-    return {k: (_layer_params(v, l) if isinstance(v, dict) else v[l])
-            for k, v in layers.items()}
-
-
 def _ffn(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.num_experts:
         return moe_mod.moe_apply(lp["moe"], x, cfg)[0]
@@ -97,10 +92,15 @@ def _block(h, lp, cfg: ModelConfig, attend):
     return h + m, k, v
 
 
-def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_seq: int
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_seq: int,
+            *, extra_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the prompt (B,S): (last-token logits (B,V) f32, ring caches)."""
+    """Run the prompt (B,S): (last-token logits (B,V) f32, ring caches).
+    ``extra_embeds`` (B,N,D) (the vlm's projected image) go ahead of the
+    token embeddings; positions run over the whole sequence."""
     h = embed_tokens(params["embed"], tokens, cfg)
+    if extra_embeds is not None:
+        h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
     n_g, plen = _groups(cfg)
@@ -110,7 +110,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_seq: int
     for l in range(cfg.num_layers):
         s = l % plen
         w = cfg.window_pattern[s]
-        lp = _layer_params(params["layers"], l)
+        lp = layer_at(params["layers"], l)
 
         def attend(x, lp=lp, w=w):
             q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions)
@@ -145,7 +145,7 @@ def decode_step(params, token: torch.Tensor, caches: Dict[str, Any],
         s, g = l % plen, l // plen
         name = f"slot{s}"
         _, window = spec[name]
-        lp = _layer_params(params["layers"], l)
+        lp = layer_at(params["layers"], l)
 
         def attend(x, lp=lp, g=g, name=name, window=window):
             q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions)

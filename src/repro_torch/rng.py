@@ -27,6 +27,12 @@ types off:
   * ``randint(key, shape, lo, hi)`` -> int32 draws of
     ``jax.random.randint``: two ``bits`` draws off ``split(key)``,
     combined modulo the span in wrapping uint32 arithmetic;
+  * ``normal(key, shape)`` -> ``sqrt(2) * erf_inv(u)`` with ``u`` the
+    float32 uniform in ``[nextafter(-1, 0), 1)``, bit-exact with
+    ``jax.random.normal`` on the CPU: ``erf_inv`` is XLA's single-precision
+    polynomial over ``w = -log1p(-u*u)`` and ``log1p`` XLA's CPU intrinsic
+    (a rational form below ``sqrt(2) - 1``, Cephes' ``log`` above), each
+    multiply-add fused where XLA's compiler fuses it;
   * ``gumbel`` / ``categorical`` -> ``-log(-log(uniform(minval=tiny)))``
     and ``argmax(gumbel + logits)`` over the last axis (``mode="low"``).
     The uniforms are bit-exact; ``log`` is the platform's (XLA's float32
@@ -110,11 +116,6 @@ def _to_unit_float(b: np.ndarray) -> np.ndarray:
         np.float32) - np.float32(1.0)
 
 
-def uniform(key: np.ndarray, shape) -> np.ndarray:
-    """float32 draws in [0, 1) of ``shape``, as ``jax.random.uniform``."""
-    return _to_unit_float(bits(key, shape))
-
-
 def bernoulli(key: np.ndarray, p: float, shape) -> np.ndarray:
     """bool draws of ``shape``, True with probability ``p`` (as float32)."""
     return uniform(key, shape) < np.float32(p)
@@ -194,6 +195,113 @@ def uniform(key: np.ndarray, shape, dtype="float32", minval: float = 0.0,
     lo, hi = r(np.float32(minval)), r(np.float32(maxval))
     u = _bf16_bits(key, shape)
     return np.maximum(lo, r(r(u * r(hi - lo)) + lo))
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` rounded once. The float64 product is exact;
+    the float64 sum rounds again only where it lands exactly halfway
+    between two float32 values (low 29 mantissa bits ``0x10000000``), and
+    there the sum's own rounding error decides the side, as the true
+    fused operation would."""
+    p = np.asarray(a, np.float32).astype(np.float64) * np.asarray(
+        b, np.float32).astype(np.float64)
+    c = np.broadcast_to(np.asarray(c, np.float32).astype(np.float64),
+                        p.shape)
+    s = p + c
+    r = s.astype(np.float32)
+    tie = (s.view(np.uint64) & np.uint64(0x1FFFFFFF)) == np.uint64(0x10000000)
+    if tie.any():
+        ps, cs, ss = p[tie], c[tie], s[tie]
+        t = ss - ps
+        err = (ps - (ss - t)) + (cs - t)  # ss + err == ps + cs exactly
+        r = np.array(r)
+        r[tie] = np.where(err == 0, r[tie], np.where(
+            err > 0, np.nextafter(ss, np.inf), np.nextafter(ss, -np.inf)
+        ).astype(np.float32))
+    return r
+
+
+def _f32(*vals):
+    return [np.float32(v) for v in vals]
+
+
+# XLA's CPU float32 log (Cephes' logf): polynomial, ln2 split in two
+_LOG_P = _f32(7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1,
+              -1.2420140846E-1, 1.4249322787E-1, -1.6668057665E-1,
+              2.0000714765E-1, -2.4999993993E-1, 3.3333331174E-1)
+_LOG_Q1, _LOG_Q2 = _f32(-2.12194440e-4, 0.693359375)
+# XLA's log1p below sqrt(2) - 1: Cephes' rational form, highest power first
+_LOG1P_DEN = _f32(1., 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+                  2.2176239823732856465394E2, 3.0909872225312059774938E2,
+                  2.1642788614495947685003E2, 6.0118660497603843919306E1)
+_LOG1P_NUM = _f32(4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+                  6.5787325942061044846969E0, 2.9911919328553073277375E1,
+                  6.0949667980987787057556E1, 5.7112963590585538103336E1,
+                  2.0039553499201281259648E1)
+# XLA's single-precision erf_inv (Giles), for w < 5 and w >= 5
+_ERFINV_LT5 = _f32(2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                   -4.39150654e-06, 0.00021858087, -0.00125372503,
+                   -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = _f32(-0.000200214257, 0.000100950558, 0.00134934322,
+                   -0.00367342844, 0.00573950773, -0.0076224613,
+                   0.00943887047, 1.00167406, 2.83297682)
+
+
+def xla_log(v: np.ndarray) -> np.ndarray:
+    """XLA's CPU float32 ``log`` of positive finite ``v``."""
+    v = np.maximum(np.asarray(v, np.float32), np.float32(2.0 ** -126))
+    b = v.view(np.uint32)
+    m = ((b & np.uint32(0x7FFFFF)) | np.uint32(0x3F000000)).view(np.float32)
+    e = ((b >> np.uint32(23)).astype(np.int32) - 126).astype(np.float32)
+    small = m < np.float32(0.707106781186547524)
+    e = e - small.astype(np.float32)
+    t = (m - np.float32(1)) + np.where(small, m, np.float32(0))
+    x2 = t * t
+    x3 = x2 * t
+    p = _LOG_P
+    y = _fma(_fma(t, p[0], p[1]), t, p[2])
+    y1 = _fma(_fma(t, p[3], p[4]), t, p[5])
+    y2 = _fma(_fma(t, p[6], p[7]), t, p[8])
+    y = _fma(_fma(_fma(y, x3, y1), x3, y2), x3, e * _LOG_Q1)
+    t = _fma(-x2, np.float32(0.5), t)
+    return _fma(e, _LOG_Q2, t + y)
+
+
+def xla_log1p(x: np.ndarray) -> np.ndarray:
+    """XLA's CPU float32 ``log1p`` of ``x`` in (-1, 0]."""
+    x = np.asarray(x, np.float32)
+    x2 = x * x
+    num = den = np.zeros_like(x)
+    for c in _LOG1P_DEN:
+        den = _fma(den, x, c)
+    for c in _LOG1P_NUM:
+        num = _fma(num, x, c)
+    small = x + _fma(x2, np.float32(-0.5), (x * x2) * (num / den))
+    return np.where(np.abs(x) < np.float32(0.41421356237309504880), small,
+                    xla_log(x + np.float32(1)))
+
+
+def erf_inv(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 ``erf_inv`` of ``x`` in [-1, 1]."""
+    x = np.asarray(x, np.float32)
+    w = -xla_log1p(-(x * x))
+    lt = w < np.float32(5)
+    with np.errstate(invalid="ignore"):
+        w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3))
+    p = np.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, w, np.where(lt, a, b))
+    return np.where(np.abs(x) == 1, x * np.float32(np.inf), p * x)
+
+
+def normal(key: np.ndarray, shape, dtype="float32") -> np.ndarray:
+    """float32 standard normal draws of ``shape``, as
+    ``jax.random.normal`` computes them on the CPU."""
+    if _dtype_name(dtype) != "float32":
+        raise ValueError("normal draws float32 only")
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    u = uniform(key, shape, minval=lo, maxval=1.0)
+    return (np.float32(np.sqrt(2)) * erf_inv(u)).astype(np.float32)
 
 
 def gumbel(key: np.ndarray, shape, dtype="float32") -> np.ndarray:

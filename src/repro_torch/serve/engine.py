@@ -1,8 +1,10 @@
 """Serving engine: batched prefill + decode with EXTENT-approximate KV writes.
 
-The counterpart of ``repro.serve.engine`` for the extent path of the
-ported families (dense and moe; hybrid, whose float32 recurrent states
-are EXACT leaves stored as they are). The engine diffs cache
+The counterpart of ``repro.serve.engine`` for the extent path of every
+family (the recurrent states of hybrid and ssm are float32 EXACT leaves,
+stored as they are; a vlm batch carries ``image_embeds`` and an audio
+batch ``frames``, and decoding starts after the image columns). The
+engine diffs cache
 trees: after a decode step the approximate write of (old cache, new
 cache) is exactly the paper's write semantics — untouched slots are
 bit-identical (zero energy under CMP) and the freshly written ring

@@ -1,7 +1,7 @@
 """Continuous-batching request scheduler over the slot-pool KV cache.
 
-The counterpart of ``repro.serve.scheduler`` for the extent path of the
-ported families (dense, moe, hybrid): admission groups (one fused
+The counterpart of ``repro.serve.scheduler`` for the extent path of
+every family but audio: admission groups (one fused
 prefill per prompt shape), decode bursts up to the next scheduler event
 (earliest completion or next arrival), per-request quality resolved
 through the ``ExtentTable`` with the pool-wide floor ``max(policy,
@@ -86,7 +86,10 @@ from repro_torch.telemetry import LANE_BACKGROUND, Lazy, Telemetry
 class Request:
     """One serving request: ``prompt`` is the batch dict with a leading
     batch dim of 1; ``new_tokens`` counts every generated token (the
-    prefill-sampled first one included); ``arrival`` is in decode steps."""
+    prefill-sampled first one included); ``arrival`` is in decode steps.
+    ``modal_seed`` is the ``PRNGKey`` seed the non-token prompt leaves
+    (vlm ``image_embeds``, audio ``frames``) were drawn from, so a trace
+    regenerates them instead of storing them."""
     rid: int
     prompt: Dict[str, torch.Tensor]
     new_tokens: int
@@ -94,6 +97,37 @@ class Request:
     app_id: Optional[Hashable] = None
     quality: Optional[Priority] = None
     session: Optional[int] = None
+    modal_seed: Optional[int] = None
+
+
+#: why an audio engine is not served continuously
+AUDIO_REFUSAL = (
+    "the audio family is served through ServingEngine.generate only: the "
+    "slot pool's cross cache is sized at enc_len 1500 (whisper's "
+    "init_cache) and cannot take a prefill's cross cache of another "
+    "length (as long as its frames); the reference's scheduler fails at "
+    "the same place (an assert in its admission write)")
+#: families whose prompts carry a leaf drawn from ``modal_seed``
+MODAL_FAMILIES = ("vlm", "audio")
+#: frames of an audio request's prompt in the reference's recipes
+AUDIO_FRAMES = 24
+
+
+def modal_leaves(cfg, modal_seed: int, device, batch: int = 1,
+                 frames: int = AUDIO_FRAMES) -> Dict[str, torch.Tensor]:
+    """The non-token prompt leaves of a vlm or audio request, the
+    reference's recipe: ``normal(PRNGKey(modal_seed), ...)`` in float32
+    (host threefry, bit-exact with ``jax.random.normal``), moved to
+    ``device`` once. Other families have none."""
+    if cfg.family == "vlm":
+        name, shape = "image_embeds", (batch, cfg.num_image_tokens,
+                                       cfg.vision_dim)
+    elif cfg.family == "audio":
+        name, shape = "frames", (batch, frames, cfg.d_model)
+    else:
+        return {}
+    x = rng.normal(rng.PRNGKey(modal_seed), shape)
+    return {name: torch.from_numpy(x).to(device)}
 
 
 def synthetic_requests(cfg, n: int, *, device, prompt_len: int = 12,
@@ -102,20 +136,27 @@ def synthetic_requests(cfg, n: int, *, device, prompt_len: int = 12,
                        qualities: Sequence = ()) -> List[Request]:
     """Deterministic random-token arrival stream, the reference's: prompt
     ``i`` is ``randint(PRNGKey(seed + 17 * i), (1, prompt_len), 0,
-    vocab)`` (the host threefry draw). ``arrival_every=k`` staggers
-    arrivals k decode steps apart (0 = all at once); ``app_ids`` /
-    ``qualities`` cycle over the requests when non-empty."""
+    vocab)`` (the host threefry draw), and a vlm or audio prompt's other
+    leaf comes from ``modal_seed = seed + 17 * i + 1``
+    (``modal_leaves``). ``arrival_every=k`` staggers arrivals k decode
+    steps apart (0 = all at once); ``app_ids`` / ``qualities`` cycle over
+    the requests when non-empty."""
     out = []
     for i in range(n):
         toks = rng.randint(rng.PRNGKey(seed + 17 * i), (1, prompt_len), 0,
                            cfg.vocab_size)
+        prompt = {"tokens": torch.from_numpy(toks.astype(np.int64)).to(
+            device)}
+        modal_seed = None
+        if cfg.family in MODAL_FAMILIES:
+            modal_seed = seed + 17 * i + 1
+            prompt.update(modal_leaves(cfg, modal_seed, device))
         out.append(Request(
-            rid=i, prompt={"tokens": torch.from_numpy(
-                toks.astype(np.int64)).to(device)},
+            rid=i, prompt=prompt,
             new_tokens=new_tokens, arrival=i * arrival_every,
             app_id=app_ids[i % len(app_ids)] if app_ids else None,
             quality=qualities[i % len(qualities)] if qualities else None,
-            session=i))
+            session=i, modal_seed=modal_seed))
     return out
 
 
@@ -167,6 +208,8 @@ class ContinuousScheduler:
                  telemetry: Optional[Telemetry] = None,
                  die_ambients: Optional[Dict[int, float]] = None):
         assert capacity >= 1
+        if engine.cfg.family == "audio":
+            raise ValueError(AUDIO_REFUSAL)
         self.eng = engine
         self.scrub_policy = scrub_policy
         self.wear_policy = wear_policy

@@ -1,9 +1,10 @@
 """Trace <-> scheduler adapters: replay, recording and the report joiner.
 
-The counterpart of ``repro.workload.replay`` for token-only traces (the
-ported families). ``TraceSource`` answers "when does the next request
-arrive" from host metadata and materializes a request's prompt tensor
-only when the scheduler pops it. Admission order is (arrival, rid), as in
+The counterpart of ``repro.workload.replay``. ``TraceSource`` answers
+"when does the next request arrive" from host metadata and materializes a
+request's prompt tensors only when the scheduler pops it; a vlm or audio
+prompt's non-token leaf is regenerated from the event's ``modal_seed``
+with the synthetic stream's recipe (same key, shape and bits). Admission order is (arrival, rid), as in
 the reference, which is what keeps replay bit-comparable across packages.
 
 ``record_requests`` is the inverse: any request stream (the synthetic
@@ -20,32 +21,27 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.core.priority import Priority
-from repro_torch.serve.scheduler import Request
+from repro_torch.serve.scheduler import MODAL_FAMILIES, Request, modal_leaves
 from repro_torch.workload.trace import (Trace, TraceEvent, from_requests,
                                         validate_trace)
 
 
-#: the ported families, whose prompts are tokens alone
-TOKEN_FAMILIES = ("dense", "hybrid", "moe")
-
-
-def _token_family(cfg) -> None:
-    if cfg.family not in TOKEN_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: only token prompts are ported")
-
-
 def _materialize(ev: TraceEvent, cfg, device,
                  quality_override: Optional[str] = None) -> Request:
-    _token_family(cfg)
+    prompt = {"tokens": torch.tensor([list(ev.tokens)], dtype=torch.int64,
+                                     device=device)}
+    if cfg.family in MODAL_FAMILIES:
+        if ev.modal_seed is None:
+            raise ValueError(
+                f"rid {ev.rid}: family {cfg.family!r} needs a modal_seed "
+                "to regenerate non-token prompt leaves")
+        prompt.update(modal_leaves(cfg, ev.modal_seed, device))
     q = quality_override if quality_override is not None else ev.quality
     return Request(
-        rid=ev.rid,
-        prompt={"tokens": torch.tensor([list(ev.tokens)], dtype=torch.int64,
-                                       device=device)},
-        new_tokens=ev.new_tokens, arrival=ev.arrival, app_id=ev.app_id,
+        rid=ev.rid, prompt=prompt, new_tokens=ev.new_tokens,
+        arrival=ev.arrival, app_id=ev.app_id,
         quality=Priority.coerce(q) if q is not None else None,
-        session=ev.session)
+        session=ev.session, modal_seed=ev.modal_seed)
 
 
 class TraceSource:
@@ -91,8 +87,14 @@ def record_requests(requests: Sequence[Request], cfg,
     """Record a request stream as a replayable trace. Token ids cross to
     the host here: one small read per request, before serving (never
     inside the scheduler's event loop)."""
-    _token_family(cfg)
-    pairs = [(r, r.prompt["tokens"][0].tolist()) for r in requests]
+    pairs = []
+    for r in requests:
+        if cfg.family in MODAL_FAMILIES and r.modal_seed is None:
+            raise ValueError(
+                f"rid {r.rid}: cannot record a {cfg.family!r} request "
+                "without a modal_seed (non-token leaves are regenerated, "
+                "not serialized)")
+        pairs.append((r, r.prompt["tokens"][0].tolist()))
     return from_requests(pairs, vocab_size=cfg.vocab_size,
                          family=cfg.family,
                          meta=meta or {"source": "recorded"})

@@ -11,6 +11,8 @@ and torch's default and single-threaded CPU runs; the first layer's
 cache, which no earlier layer amplifies, is held at a few ulps, so a
 norm epsilon or a rope detail that is wrong shows there. Cache entries a
 decode step does not write are bit-identical."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -117,5 +119,9 @@ def test_decode_step_same_cache(models, pos):
 
 
 def test_other_families_raise():
-    with pytest.raises(NotImplementedError):
-        get_model(get_config("mamba2-2.7b").reduced())
+    """Every family the reference serves is served; a family neither
+    package knows raises the reference's ValueError."""
+    get_model(get_config("mamba2-2.7b").reduced())
+    with pytest.raises(ValueError):
+        get_model(dataclasses.replace(get_config("qwen2.5-3b").reduced(),
+                                      family="bogus"))

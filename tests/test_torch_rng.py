@@ -71,3 +71,58 @@ def test_device_counters_match_host_threefry(start):
     assert got.numpy().tolist() == (y0 ^ y1).astype(np.int64).tolist()
     with pytest.raises(AssertionError):
         rng.check_count(2 ** 32)
+
+
+# --------------------------------------------------------------------------
+# normal: XLA's erf_inv over XLA's CPU log1p, each fused multiply-add fused
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed,shape", [(1, (1, 24, 1280)),
+                                        (18, (1, 24, 1280)),
+                                        (35, (1, 24, 1280)),
+                                        (2, (1, 8, 1024)), (7, (3, 5))])
+def test_normal_matches_jax(seed, shape):
+    """The synthetic stream's frames and image embeddings, bit for bit."""
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape,
+                                        np.float32))
+    got = rng.normal(rng.PRNGKey(seed), shape)
+    assert got.dtype == np.float32 and got.shape == shape
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_normal_over_every_uniform():
+    """Every float32 uniform ``u = k 2^-23`` the draw can start from,
+    mapped to [nextafter(-1, 0), 1): ``sqrt(2) erf_inv(x)`` equals XLA's
+    for all 2^23 of them, so ``normal`` is exact for every key."""
+    u = (np.arange(2 ** 23, dtype=np.uint32) | np.uint32(0x3F800000)).view(
+        np.float32) - np.float32(1)
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    x = np.maximum(lo, (u.astype(np.float64) * 2 + lo).astype(np.float32))
+    sqrt2 = np.float32(np.sqrt(2))
+    want = np.asarray(jax.jit(lambda v: jax.lax.erf_inv(v) * sqrt2)(x))
+    got = (sqrt2 * rng.erf_inv(x)).astype(np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_xla_log1p_and_log_match_jax():
+    """Over (-1, 0] (the branch point sqrt(2) - 1 and both ends
+    included) and ``log`` over (0, 1]; numpy's float32 ``log1p`` differs
+    from XLA's in the last bit of about a sixth of these."""
+    r = np.random.default_rng(0)
+    x = -r.uniform(0, 1, 1 << 20).astype(np.float32)
+    t = np.float32(0.41421356237309504880)
+    x = np.concatenate([x, [0.0, -0.0, -t, np.nextafter(-t, 0),
+                            np.nextafter(-t, -1), -0.99999994]]).astype(
+        np.float32)
+    np.testing.assert_array_equal(
+        rng.xla_log1p(x).view(np.uint32),
+        np.asarray(jax.numpy.log1p(x)).view(np.uint32))
+    y = x[x > -1] + np.float32(1)
+    np.testing.assert_array_equal(
+        rng.xla_log(y).view(np.uint32),
+        np.asarray(jax.numpy.log(y)).view(np.uint32))
+
+
+def test_normal_draws_float32_only():
+    with pytest.raises(ValueError):
+        rng.normal(rng.PRNGKey(0), (2,), "bfloat16")

@@ -312,9 +312,13 @@ def test_generated_trace_of_another_family_is_refused():
     cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
                               family="vlm")
     trace = make_workload("steady", get_config("qwen2.5-3b").reduced(), 2)
-    with pytest.raises(NotImplementedError):
+    # a generated trace carries no modal_seed: a vlm can neither replay
+    # nor record it, as in the reference
+    with pytest.raises(ValueError, match="needs a modal_seed"):
         requests_from_trace(trace, cfg, CPU)
-    with pytest.raises(NotImplementedError):
-        record_requests([], cfg)
+    reqs = requests_from_trace(trace, get_config("qwen2.5-3b").reduced(),
+                               CPU)
+    with pytest.raises(ValueError, match="without a modal_seed"):
+        record_requests(reqs, cfg)
     assert json.loads(dumps(trace).splitlines()[0])["meta"]["preset"] == \
         "steady"
