@@ -226,14 +226,26 @@ each printed as one JSON line:
                     identical, 4 launches a write; the cross cache's
                     decode columns flip nothing; the prefill's cross K/V
                     write (32, 4, 1500, 20, 64) bf16 = 122.9 M lanes and
-                    a decode column against the twin and timed.
+                    a decode column against the twin and timed;
+ 26. paper        — the paper's six results (Table 1, Figs. 2, 6, 12, 14
+                    and 15/16) through repro_torch.benchmarks.run's
+                    functions on the card at the paper's sizes (Fig. 2 at
+                    128 trajectories a current, Fig. 15 at 1000 corners
+                    plus the Fig. 16 sweep at 4 x 250), each's seconds,
+                    then again on the CPU in this process on the same host
+                    draws, held against the card (bounds at
+                    ``PAPER_SUMMARY_RTOL``); the four kernels' launches
+                    over the card's runs (none expected); monte_carlo_wer
+                    at n = 1000 (host draws and the card's integration
+                    timed apart); the s-LLGS Euler step's ms and its
+                    kernels per step (torch.profiler); Table 1's claims.
 
 They run in the order build, kernel, scrub_kernel,
 local_attention_kernel, kv_quant_kernel, rng_device, reduced,
 reduced_hybrid, reduced_moe, reduced_families, full, retention,
 telemetry, shards, oracle, prefix, soft_errors, wear, sampling,
 workload, hybrid, moe, ssm, vlm, audio (each full-width model loads
-after the previous one is freed); then the script's seconds (``done``),
+after the previous one is freed), paper; then the script's seconds (``done``),
 nvidia-smi's line again and the kernels line, where the extent_write and scrub entries add their
 launches on each path (``launches_by_path``), extent_write the MoE and
 vlm admission writes and the audio prefill's cross K/V and decode
@@ -3332,6 +3344,205 @@ def kv_quant_entry(launches, worst, registers, sch):
                  f"{flat.numel()} elements, level MID"}
 
 
+#: the paper's results (the reference runner's sizes without --fast: Fig.
+#: 2 at 128 trajectories a current, Fig. 15 at 1000 corners plus the Fig.
+#: 16 sweep at 4 sigmas x 250), and monte_carlo_wer at the paper's
+#: n = 1000 at 300 uA (the knee of Fig. 2's curve)
+PAPER_MC_WER_N = 1000
+PAPER_MC_WER_UA = 300
+#: the card against the CPU (same host draws): Fig. 15's summaries rtol
+#: 1e-6 (the corners are the same float32 and float64 IEEE operations on
+#: both, so they should be equal); Fig. 12's energies rtol 1e-5 (flips and
+#: errors exact); table1, fig14 and fig6 equal (host arithmetic; so is
+#: ecc.compare, which has no device path and is held against the
+#: reference by the CPU tests)
+PAPER_SUMMARY_RTOL = 1e-6
+PAPER_ENERGY_RTOL = 1e-5
+
+
+def paper_decisions_bound(n: int) -> int:
+    """Switching decisions a Monte-Carlo WER of n trajectories may differ
+    in between the card and the CPU: CUDA's float32 sin and cos are not
+    the CPU's, so a trajectory ending within their last bits of pi/2 may
+    decide the other way (measured: none of 32-128 against XLA's)."""
+    return max(2, n // 200)
+
+
+def paper_rel_diff(a, b, path: str = "") -> dict:
+    """{path: relative difference} over the numeric leaves of two equal-
+    shaped results (booleans and strings must be equal)."""
+    if isinstance(a, dict):
+        assert list(a) == list(b), (path, list(a), list(b))
+        out = {}
+        for k in a:
+            out.update(paper_rel_diff(a[k], b[k], f"{path}.{k}"))
+        return out
+    if isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        out = {}
+        for i, (x, y) in enumerate(zip(a, b)):
+            out.update(paper_rel_diff(x, y, f"{path}[{i}]"))
+        return out
+    if isinstance(a, (bool, str)) or a is None:
+        assert a == b, (path, a, b)
+        return {}
+    return {path: abs(a - b) / max(abs(b), 1e-300)}
+
+
+def llgs_launches(noise, i_write):
+    """The s-LLGS loop on the card under torch.profiler: (kernels per
+    Euler step, device-busy ms per step)."""
+    import torch
+    from repro_torch.core import mtj
+    from repro_torch.launch.profile import _dev_us
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        mtj.integrate_llgs(noise, mtj.DEFAULT_MTJ, i_write, trajectory=False)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", ""))]
+    steps = noise.shape[1]
+    return (sum(e.count for e in rows) / steps,
+            sum(_dev_us(e) for e in rows) / 1e3 / steps)
+
+
+def phase_paper(device):
+    """The paper's six results through the port's benchmark runner on the
+    card at the paper's sizes, then on the CPU in this process on the
+    same host draws, held against each other; the s-LLGS loop's and the
+    variation study's times, draws apart."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.benchmarks import run as bench
+    from repro_torch.core import energy_model, mtj
+    cpu = torch.device("cpu")
+    reset_launches()
+    card, seconds = {}, {}
+    for name, fn in bench.BENCHES.items():
+        t0 = time.perf_counter()
+        card[name] = fn(False, device)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    launches = read_launches()
+    host = {name: fn(False, cpu) for name, fn in bench.BENCHES.items()}
+    worst = {}
+    for name in ("table1", "fig14_energy", "fig6_thermal"):
+        if card[name] != host[name]:
+            raise AssertionError(f"paper: {name} differs between the card "
+                                 f"and the CPU")
+        worst[name] = 0.0
+    # Fig. 12: flips and errors exact, energies to PAPER_ENERGY_RTOL
+    if card["fig12_waveform"]["checks"] != host["fig12_waveform"]["checks"] \
+            or not all(card["fig12_waveform"]["checks"].values()):
+        raise AssertionError(f"paper: fig12 checks "
+                             f"{card['fig12_waveform']['checks']}")
+    e_worst = 0.0
+    for a, b in zip(card["fig12_waveform"]["events"],
+                    host["fig12_waveform"]["events"]):
+        if (a["bits_flipped"], a["bit_errors"]) != (b["bits_flipped"],
+                                                    b["bit_errors"]):
+            raise AssertionError(f"paper: fig12 {a['event']}: {a} != {b}")
+        for k in ("energy_pj", "latency_ns"):
+            e_worst = max(e_worst, abs(a[k] - b[k]) / max(abs(b[k]), 1e-30))
+    if e_worst > PAPER_ENERGY_RTOL:
+        raise AssertionError(f"paper: fig12 energies {e_worst:.3g} apart")
+    worst["fig12_waveform"] = e_worst
+    # Fig. 15/16: every summary and claim
+    diffs = paper_rel_diff(card["fig15_variation"], host["fig15_variation"])
+    worst["fig15_variation"] = max(diffs.values())
+    if worst["fig15_variation"] > PAPER_SUMMARY_RTOL:
+        k = max(diffs, key=diffs.get)
+        raise AssertionError(f"paper: fig15 {k} {diffs[k]:.3g} apart")
+    # Fig. 2: Monte-Carlo WERs within the decisions bound, Eq. 1 equal
+    n_fig2, fig2_differ = 128, 0
+    for k, v in card["fig2_switching"].items():
+        if not k.startswith("I="):
+            continue
+        h = host["fig2_switching"][k]
+        if v["eq1_wer"] != h["eq1_wer"]:
+            raise AssertionError(f"paper: fig2 {k} eq1 {v} != {h}")
+        fig2_differ = max(fig2_differ,
+                          round(abs(v["mc_wer"] - h["mc_wer"]) * n_fig2))
+    if fig2_differ > paper_decisions_bound(n_fig2) or \
+            card["fig2_switching"]["monotone"] != \
+            host["fig2_switching"]["monotone"]:
+        raise AssertionError(f"paper: fig2 {card['fig2_switching']} "
+                             f"against {host['fig2_switching']}")
+    worst["fig2_decisions_of_128"] = fig2_differ
+    # the s-LLGS loop: host draws apart from the card's integration
+    p = mtj.DEFAULT_MTJ
+    key = rng.PRNGKey(0)
+    n_steps = int(10e-9 / 5e-12)
+    t0 = time.perf_counter()
+    fig2_noise = mtj.llgs_noise(rng.split(key, n_fig2), n_steps)
+    fig2_draw_s = time.perf_counter() - t0
+    fig2_int_s = {}
+    for i_ua in bench.fig2_switching.CURRENTS_UA:
+        t0 = time.perf_counter()
+        float(mtj.monte_carlo_wer(key, p, i_ua * 1e-6, n=n_fig2,
+                                  device=device, noise=fig2_noise))
+        fig2_int_s[f"I={i_ua}uA"] = time.perf_counter() - t0
+    n = PAPER_MC_WER_N
+    i_write = PAPER_MC_WER_UA * 1e-6
+    t0 = time.perf_counter()
+    noise = mtj.llgs_noise(rng.split(key, n), n_steps)
+    mc_draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w_card = float(mtj.monte_carlo_wer(key, p, i_write, n=n, device=device,
+                                       noise=noise))
+    mc_card_s = time.perf_counter() - t0
+    w_cpu = float(mtj.monte_carlo_wer(key, p, i_write, n=n, device=cpu,
+                                      noise=noise))
+    mc_differ = round(abs(w_card - w_cpu) * n)
+    if mc_differ > paper_decisions_bound(n):
+        raise AssertionError(f"paper: monte_carlo_wer n={n} card {w_card} "
+                             f"against CPU {w_cpu}")
+    worst[f"mc_wer_decisions_of_{n}"] = mc_differ
+    noise_dev = torch.from_numpy(noise).to(device)
+    step_ms = cuda_ms(lambda: mtj.integrate_llgs(
+        noise_dev, p, i_write, trajectory=False), iters=3, warmup=1) / n_steps
+    kernels_per_step, busy_ms_per_step = llgs_launches(noise_dev, i_write)
+    # the variation study: host draws apart from the card's corners
+    t0 = time.perf_counter()
+    z = energy_model.variation_draws(key, 1000)
+    var_draw_s = time.perf_counter() - t0
+    z_dev = torch.from_numpy(z).to(device)
+    var_ms = cuda_ms(lambda: energy_model.variation_samples(z_dev), iters=5,
+                     warmup=1)
+    claims = card["table1"]["claims"]
+    emit({"phase": "paper", "card_s": seconds,
+          "launches": launches,
+          "fig2_host_draw_s": fig2_draw_s,
+          "fig2_card_integration_s": fig2_int_s,
+          "llgs_ms_per_step_n1000": step_ms,
+          "llgs_kernels_per_step": kernels_per_step,
+          "llgs_device_busy_ms_per_step": busy_ms_per_step,
+          "monte_carlo_wer_n1000": {
+              "i_ua": PAPER_MC_WER_UA, "wer_card": w_card, "wer_cpu": w_cpu,
+              "host_draw_s": mc_draw_s, "card_s": mc_card_s},
+          "fig15_host_draw_s_n1000": var_draw_s,
+          "fig15_card_corners_ms_n1000": var_ms,
+          "card_vs_cpu_worst": worst,
+          "decisions_bound": {"fig2": paper_decisions_bound(n_fig2),
+                              "mc_wer": paper_decisions_bound(n)},
+          "claims": {k: claims[k] for k in (
+              "energy_saving_vs_ranjan", "latency_saving_vs_quark",
+              "area_overhead_vs_cast")},
+          "fig2": {k: v for k, v in card["fig2_switching"].items()
+                   if k != "us_per_call"},
+          "fig15_claim_approx_spread_lower":
+              card["fig15_variation"]["fig15_claim_approx_spread_lower"],
+          "fig15_energy_mean_pj": {
+              "full": card["fig15_variation"]["fig15_full_write_energy"][
+                  "mean"],
+              "approx": card["fig15_variation"][
+                  "fig15_approx_write_energy"]["mean"]},
+          "fig14_mean_saving_vs_basic":
+              card["fig14_energy"]["mean_saving_vs_basic"]})
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3415,6 +3626,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         full_width[phase.__name__[len("phase_"):]] = phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_paper(device)
     entries[0]["launches_by_path"].update(
         reduced_families=rf_launches["extent_write"],
         ssm=full_width["ssm"]["extent_write"], vlm=full_width["vlm"][0],

@@ -1,21 +1,28 @@
-"""Priority-tagging API (paper Fig. 10/11) over nested dicts of tensors.
+"""Priority-tagging API: the paper's "software support" layer (Fig. 10/11).
 
-The slice of ``repro.core.priority`` the serving path needs: the four
-driver levels, the KV-cache tagging policy, and the per-bit-plane
-priority codes of a float word (sign/exponent EXACT, mantissa degrading
-toward LOW at the least significant bits).
+  * ``Priority`` — the four driver levels;
+  * ``tag_pytree(tree, rule)`` — map the leaves of a tree of tensors (by
+    path, name or dtype) to levels; ``checkpoint_policy`` and
+    ``kv_cache_policy`` are the standard rules;
+  * bit-plane priorities — within one float word, sign and exponent bits
+    are EXACT and the mantissa degrades toward LOW at the least
+    significant bits (``bitplane_priorities``, ``priority_mask``).
 
-A leaf's *path* is the tuple of dict keys leading to it; policies match
-on ``keystr(path)``, which renders exactly like JAX's key paths
-(``"['slot0']['k']"``) so both packages tag the same leaves alike.
+A leaf's *path* is the tuple of keys leading to it (``tree.map_with_path``:
+dict keys, sequence indices, NamedTuple fields); policies match on
+``keystr(path)``, which renders exactly like JAX's key paths
+(``"['slot0']['k']"``, ``"[0].mu['w']"``) so both packages tag the same
+leaves alike.
 """
 from __future__ import annotations
 
 import enum
-from typing import Any, Tuple
+from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import tree as T
 
 
 class Priority(enum.IntEnum):
@@ -34,12 +41,36 @@ class Priority(enum.IntEnum):
 
 
 def keystr(path: Tuple[Any, ...]) -> str:
-    return "".join(f"[{k!r}]" for k in path)
+    return "".join(f".{k.name}" if isinstance(k, T.GetAttrKey) else f"[{k!r}]"
+                   for k in path)
 
 
 def path_contains(path: Tuple[Any, ...], *names: str) -> bool:
     s = keystr(path)
     return any(n in s for n in names)
+
+
+def tag_pytree(tree: Any, rule: Callable[[Tuple[Any, ...], Any], Any],
+               default: Priority = Priority.EXACT) -> Any:
+    """Tree of tensors -> same-structure tree of Priority.
+
+    ``rule(path, leaf)`` may return a Priority / int / str / None (None ->
+    default); dict keys and NamedTuple fields match by name."""
+    def one(path, leaf):
+        r = rule(path, leaf)
+        return default if r is None else Priority.coerce(r)
+
+    return T.map_with_path(one, tree)
+
+
+def checkpoint_policy(path, leaf) -> Priority:
+    """Checkpoint tagging: weights exact; optimizer second moments are the
+    most error-tolerant (smoothed statistics); first moments mid."""
+    if path_contains(path, ".v", "nu"):
+        return Priority.LOW
+    if path_contains(path, ".m", "mu"):
+        return Priority.MID
+    return Priority.EXACT
 
 
 def kv_cache_policy(path, leaf) -> Priority:
@@ -97,3 +128,16 @@ def bitplane_priorities(dtype: torch.dtype,
     out[: max(1, m // 2)] = max(int(Priority.LOW), lvl - 1)
     out[m:] = int(Priority.EXACT)
     return out
+
+
+def priority_mask(dtype: torch.dtype, tensor_level: Priority
+                  ) -> torch.Tensor:
+    """(bits,) int32 priority-code vector (host) for broadcasting against
+    unpacked bit tensors."""
+    return torch.from_numpy(bitplane_priorities(dtype, tensor_level))
+
+
+def priority_of(tags: Any, path_leaf) -> Priority:
+    """Fetch a tag from a tagged tree by key (dict trees; anything else
+    is EXACT)."""
+    return tags[path_leaf] if isinstance(tags, dict) else Priority.EXACT

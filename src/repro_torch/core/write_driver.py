@@ -1,11 +1,12 @@
 """EXTENT 4-level write driver (paper Fig. 9) and its calibrated level table.
 
-A copy of ``repro.core.write_driver``'s calibration: four quality levels
-00(low)..11(high), each a (current overdrive, pulse width, energy) bank,
-folded through the WER model and the CMP self-termination expectation
-into per-bit failure probabilities, energies and latencies. The table is
-host data (numpy float32, bit-equal to the reference's) that the write
-plan turns into device operands once.
+A copy of ``repro.core.write_driver``: four quality levels 00(low)..11(high),
+each a (current overdrive, pulse width, energy) bank, folded through the
+WER model and the CMP self-termination expectation into per-bit failure
+probabilities, energies and latencies; the paper's Table 1 rows; and the
+word-level energy and latency of a priority mix. The table is host data
+(numpy float32, bit-equal to the reference's serving table) that the
+write plan turns into device operands once.
 """
 from __future__ import annotations
 
@@ -20,6 +21,21 @@ from repro_torch.core import wer as wer_mod
 VDDH = 0.9
 VDDL = 0.86001
 WORD_BITS = 64
+PULSE_NS = 10.0  # write-enable pulse budget (matches SOTA [2][17][20][37])
+
+# Table 1 reference rows (word-level, for the table1 benchmark)
+TABLE1 = {
+    "basic": {"area_mm2": 1.31, "latency_ns": 19.0, "energy_pj": 1046.0,
+              "self_term": False, "monitoring": "none"},
+    "ranjan_dac15": {"area_mm2": 1.37, "latency_ns": 2.2, "energy_pj": 503.6,
+                     "self_term": False, "monitoring": "continuous"},  # [18]
+    "quark_islped17": {"area_mm2": 1.31, "latency_ns": 7.3, "energy_pj": 393.3,
+                       "self_term": False, "monitoring": "none"},      # [21]
+    "extent": {"area_mm2": 1.46, "latency_ns": 6.9, "energy_pj": 337.2,
+               "self_term": True, "monitoring": "continuous"},
+    "cast_tcad20": {"area_mm2": 1.41, "latency_ns": 7.8, "energy_pj": 356.9,
+                    "self_term": True, "monitoring": "continuous"},    # [40]
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,3 +122,25 @@ def level_table(cfg: DriverConfig = DriverConfig()) -> Dict[str, np.ndarray]:
     for v in out.values():
         v.setflags(write=False)
     return out
+
+
+def word_energy_pj(levels: Tuple[LevelSpec, ...], level_mix: Dict[int, float],
+                   p_transition: float = 0.5) -> float:
+    """Expected 64-bit word write energy for a priority mix; a bit flips
+    with probability ``p_transition`` (the Fig. 13 access pattern),
+    50/50 between directions."""
+    total = 0.0
+    for code, frac in level_mix.items():
+        lvl = next(l for l in levels if l.code == code)
+        e_bit = 0.5 * (lvl.e_0to1_pj + lvl.e_1to0_pj)
+        total += frac * WORD_BITS * p_transition * e_bit
+    return total
+
+
+def word_latency_ns(levels: Tuple[LevelSpec, ...],
+                    level_mix: Dict[int, float]) -> float:
+    """Word write latency: the per-level banks write in parallel, so the
+    slowest *used* bank (mix fraction > 0) bounds the word."""
+    used = [next(l for l in levels if l.code == code)
+            for code, frac in level_mix.items() if frac > 0]
+    return max((l.latency_ns for l in used), default=0.0)

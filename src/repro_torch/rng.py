@@ -116,6 +116,19 @@ def _to_unit_float(b: np.ndarray) -> np.ndarray:
         np.float32) - np.float32(1.0)
 
 
+def _scale_unit(u: np.ndarray, minval: float, maxval: float) -> np.ndarray:
+    """float32 unit draws moved to [minval, maxval)."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    if lo == 0.0 and hi == 1.0:
+        return u
+    # XLA contracts the scale and shift into one fused multiply-add: the
+    # float64 product is exact and the sum rounds, then rounds to float32
+    # (a double rounding, which can differ from the fused one at a tie;
+    # at [0, 1) and [tiny, 1) both are exact)
+    return np.maximum(lo, (u.astype(np.float64) * (hi - lo)
+                           + lo).astype(np.float32))
+
+
 def bernoulli(key: np.ndarray, p: float, shape) -> np.ndarray:
     """bool draws of ``shape``, True with probability ``p`` (as float32)."""
     return uniform(key, shape) < np.float32(p)
@@ -181,16 +194,7 @@ def uniform(key: np.ndarray, shape, dtype="float32", minval: float = 0.0,
     """Draws in [minval, maxval) of ``shape``, as ``jax.random.uniform``
     in ``dtype`` (float32 or bfloat16, each step rounded to it)."""
     if _dtype_name(dtype) == "float32":
-        u = _to_unit_float(bits(key, shape))
-        lo, hi = np.float32(minval), np.float32(maxval)
-        if lo == 0.0 and hi == 1.0:
-            return u
-        # XLA contracts the scale and shift into one fused multiply-add:
-        # the float64 product is exact and the sum rounds, then rounds to
-        # float32 (a double rounding, which can differ from the fused
-        # one at a tie; at [0, 1) and [tiny, 1) both are exact)
-        return np.maximum(lo, (u.astype(np.float64) * (hi - lo)
-                               + lo).astype(np.float32))
+        return _scale_unit(_to_unit_float(bits(key, shape)), minval, maxval)
     r = _round_bf16
     lo, hi = r(np.float32(minval)), r(np.float32(maxval))
     u = _bf16_bits(key, shape)
@@ -299,9 +303,46 @@ def normal(key: np.ndarray, shape, dtype="float32") -> np.ndarray:
     ``jax.random.normal`` computes them on the CPU."""
     if _dtype_name(dtype) != "float32":
         raise ValueError("normal draws float32 only")
+    return _normal_of_bits(bits(key, shape))
+
+
+def _normal_of_bits(b: np.ndarray) -> np.ndarray:
     lo = np.nextafter(np.float32(-1), np.float32(0))
-    u = uniform(key, shape, minval=lo, maxval=1.0)
+    u = _scale_unit(_to_unit_float(b), lo, 1.0)
     return (np.float32(np.sqrt(2)) * erf_inv(u)).astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# draws for a stack of keys: what ``vmap`` over ``split(key, n)`` draws
+# --------------------------------------------------------------------------
+
+
+def bits_keys(keys: np.ndarray, shape=(1,)) -> np.ndarray:
+    """``bits(k, shape)`` for every key ``k`` of the ``(n, 2)`` stack
+    ``keys``, as one ``(n, *shape)`` array: the block function runs on
+    the key words as columns, so the n draws are one numpy pass."""
+    keys = np.asarray(keys, np.uint32)
+    m = int(np.prod(shape))
+    y0, y1 = threefry2x32((keys[:, :1], keys[:, 1:]), np.zeros(m, np.uint32),
+                          np.arange(m, dtype=np.uint32))
+    return (y0 ^ y1).reshape((len(keys),) + tuple(shape))
+
+
+def split_keys(keys: np.ndarray, num: int = 2) -> np.ndarray:
+    """``split(k, num)`` for every key of the ``(n, 2)`` stack:
+    ``(n, num, 2)`` uint32 subkeys."""
+    keys = np.asarray(keys, np.uint32)
+    y0, y1 = threefry2x32((keys[:, :1], keys[:, 1:]),
+                          np.zeros(num, np.uint32),
+                          np.arange(num, dtype=np.uint32))
+    return np.stack([y0, y1], axis=-1)
+
+
+def normal_keys(keys: np.ndarray, shape=()) -> np.ndarray:
+    """``normal(k, shape)`` for every key of the ``(n, 2)`` stack, as one
+    float32 ``(n, *shape)`` array: ``vmap(lambda k: normal(k, shape))``
+    over the stack, each row bit-exact with its own key's draw."""
+    return _normal_of_bits(bits_keys(keys, shape))
 
 
 def gumbel(key: np.ndarray, shape, dtype="float32") -> np.ndarray:

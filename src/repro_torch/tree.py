@@ -3,10 +3,14 @@
 Leaves are ordered as JAX orders a dict pytree — keys sorted at every
 level — so leaf ``i`` here is leaf ``i`` in the JAX package, which the
 write plan's ``fold_in(key, i)`` schedule depends on.
+
+``map_with_path`` also walks NamedTuples, lists and tuples (an
+optimiser's state), with the key paths JAX gives them: a dict key, a
+sequence index, or a NamedTuple field as a ``GetAttrKey``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 Path = Tuple[Any, ...]
 
@@ -41,3 +45,27 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
     return fn(tree, *rest)
+
+
+class GetAttrKey(NamedTuple):
+    """A NamedTuple field in a key path (JAX renders it ``.name``)."""
+    name: str
+
+
+def map_with_path(fn: Callable[[Path, Any], Any], tree: Any,
+                  prefix: Path = ()) -> Any:
+    """``fn(path, leaf)`` over every leaf of a tree of dicts, NamedTuples,
+    lists and tuples, into a tree of the same structure (``None`` is an
+    empty subtree, as in JAX)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, tree[k], prefix + (k,))
+                for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_with_path(fn, v, prefix + (GetAttrKey(f),))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, prefix + (i,))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
