@@ -73,12 +73,13 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.energy_model import (StepEnergyMeter, add_slot_stats,
                                            zero_slot_stats)
+from repro_torch.core.approx_store import approx_write_with_stats
 from repro_torch.core.extent_table import QualityController
-from repro_torch.core.priority import Priority
+from repro_torch.core.priority import Priority, kv_cache_policy
 from repro_torch.device import resolve_device
 from repro_torch.memory import (AddressSpec, WritePlan, WriteStats,
                                 default_backend)
-from repro_torch.memory.plan import BATCH_AXIS
+from repro_torch.memory.plan import BATCH_AXIS, _approximate
 from repro_torch.models import ModelApi, get_model
 from repro_torch.reliability import LifetimePlan, scrub_tree
 
@@ -128,6 +129,11 @@ class ServeConfig:
     shards: int = 1
 
 
+def _tag_cache(cache: Any) -> Any:
+    """Priority tree for a cache tree via the KV policy."""
+    return T.map_with_path(kv_cache_policy, cache)
+
+
 def _row_mask(active: torch.Tensor, ndim: int) -> torch.Tensor:
     shape = [1] * ndim
     shape[BATCH_AXIS] = active.shape[0]
@@ -140,6 +146,30 @@ def mask_rows(new_tree: Any, old_tree: Any, active: torch.Tensor) -> Any:
     return T.tree_map(
         lambda n, o: torch.where(_row_mask(active, n.dim()), n, o),
         new_tree, old_tree)
+
+
+def eager_extent_cache_write(key: np.ndarray, old_cache: Any,
+                             new_cache: Any, tags: Any
+                             ) -> Tuple[Any, Dict[str, Any]]:
+    """Eager oracle for the fused cache write (the seed engine's data
+    path): every approximate leaf goes through ``approx_write_with_stats``
+    with ``fold_in(key, i)``, its stats read to the host leaf by leaf and
+    summed in Python. The reference the benchmarks hold the fused path
+    against; no serving path calls it."""
+    stored, agg = [], {"energy_pj": 0.0, "bits_written": 0, "bit_errors": 0,
+                       "bits_total": 0}
+    for i, (o, n, t) in enumerate(zip(T.leaves(old_cache),
+                                      T.leaves(new_cache), T.leaves(tags))):
+        if _approximate(n, t):
+            s, st = approx_write_with_stats(rng.fold_in(key, i), o, n, t)
+            agg["energy_pj"] += float(st.energy_pj)
+            agg["bits_written"] += int(st.bits_written)
+            agg["bit_errors"] += int(st.bit_errors)
+            agg["bits_total"] += int(st.bits_total)
+            stored.append(s)
+        else:
+            stored.append(n)  # EXACT leaves are stored as they are
+    return T.unflatten([p for p, _ in T.flatten(new_cache)], stored), agg
 
 
 class ServingEngine:

@@ -119,7 +119,10 @@ def test_fig15_variation_matches():
     assert port["n_samples"] == ref["n_samples"] == 200
 
 
-def test_runner_writes_report(tmp_path, capsys):
+def test_runner_writes_report(tmp_path, capsys, monkeypatch):
+    # the paper's six results (the serving modules: test_torch_*_benchmarks)
+    monkeypatch.setattr(runner, "BENCHES",
+                        {k: runner.BENCHES[k] for k in runner.PAPER})
     assert runner.main(["--device", CPU, "--fast",
                         "--out-dir", str(tmp_path)]) == 0
     lines = capsys.readouterr().out.splitlines()
