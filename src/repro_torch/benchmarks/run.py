@@ -7,11 +7,10 @@ Usage: PYTHONPATH=src python -m repro_torch.benchmarks.run [--only NAME]
 Prints ``name,seconds,key_results`` per benchmark; exits nonzero if any
 benchmark fails. The sizes are the reference runner's
 (``benchmarks/run.py``), with and without ``--fast``. ``--quick`` is
-the reference's quick profile (implies ``--fast``) less
-``retention_sweep``, which ages a memory region the port does not have
-yet. Every run also writes a machine-readable ``BENCH_<n>.json`` into
-``--out-dir`` (default ``build/bench_torch``; ``n`` is one more than the
-highest index there): suite name, device, wall time, and per-benchmark
+the reference's quick profile (implies ``--fast``). Every run also
+writes a machine-readable ``BENCH_<n>.json`` into ``--out-dir``
+(default ``build/bench_torch``; ``n`` is one more than the highest
+index there): suite name, device, wall time, and per-benchmark
 {seconds, metrics}. A module's metrics are its ``bench_metrics(out)``
 where it has one (a hook that raises falls back to the scraped scalar
 leaves, flagged ``_metrics_fallback``), else the result's scalar leaves.
@@ -33,7 +32,8 @@ from repro_torch.benchmarks import (endurance_sweep, fig2_switching,
                                     fig6_thermal, fig12_waveform,
                                     fig14_energy, fig15_variation,
                                     kernel_bench, prefix_reuse,
-                                    serving_energy, shard_scaling, table1,
+                                    retention_sweep, serving_energy,
+                                    shard_scaling, table1,
                                     telemetry_overhead, workload_mixes)
 from repro_torch.device import resolve_device
 
@@ -55,6 +55,9 @@ BENCHES: Dict[str, Callable[[bool, torch.device], Any]] = {
         archs=("qwen2.5-3b",) if fast else ("qwen2.5-3b",
                                             "recurrentgemma-2b"),
         new_tokens=4 if fast else 8, device=dev),
+    "retention_sweep": lambda fast, dev: retention_sweep.run(
+        steps=8 if fast else 16,
+        shape=(32, 64) if fast else (64, 128), device=dev),
     "endurance_sweep": lambda fast, dev: endurance_sweep.run(
         steps=64 if fast else 160,
         shape=(8, 32) if fast else (8, 64), device=dev),
@@ -82,21 +85,21 @@ MEASURES: Dict[str, Callable[[bool, torch.device], Any]] = {
 PAPER = ("table1", "fig2_switching", "fig6_thermal", "fig12_waveform",
          "fig14_energy", "fig15_variation")
 #: the serving stack's benchmarks
-SERVING = ("kernel_bench", "serving_energy", "endurance_sweep",
-           "prefix_reuse", "workload_mixes", "telemetry_overhead",
-           "shard_scaling")
+SERVING = ("kernel_bench", "serving_energy", "retention_sweep",
+           "endurance_sweep", "prefix_reuse", "workload_mixes",
+           "telemetry_overhead", "shard_scaling")
 
 #: the --quick profile: the reference's QUICK_BENCHES (its sub-minute
-#: subset, one invocation, one JSON) less retention_sweep, which waits for
-#: the port's memory regions
+#: subset, one invocation, one JSON)
 QUICK_BENCHES = ("table1", "fig6_thermal", "kernel_bench",
-                 "endurance_sweep", "prefix_reuse", "workload_mixes",
-                 "telemetry_overhead", "shard_scaling")
+                 "retention_sweep", "endurance_sweep", "prefix_reuse",
+                 "workload_mixes", "telemetry_overhead", "shard_scaling")
 
 #: modules exposing ``bench_metrics(out)``
 METRIC_FNS = {
     "serving_energy": serving_energy.bench_metrics,
     "kernel_bench": kernel_bench.bench_metrics,
+    "retention_sweep": retention_sweep.bench_metrics,
     "endurance_sweep": endurance_sweep.bench_metrics,
     "prefix_reuse": prefix_reuse.bench_metrics,
     "workload_mixes": workload_mixes.bench_metrics,
@@ -130,6 +133,8 @@ def headline(name: str, out) -> str:
         k = next(iter(out))
         return (f"{k}: saving={out[k]['saving_vs_basic']:.3f} "
                 f"skip={out[k]['write_skip_rate']:.3f}")
+    if name == "retention_sweep":
+        return json.dumps(out["claims"])
     if name == "endurance_sweep":
         return (f"leveling_gain={out['wear_leveling_gain']:.1f}x "
                 f"remap_overhead={out['remap_overhead_frac']:.2f}")

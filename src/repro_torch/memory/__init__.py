@@ -2,8 +2,9 @@
 
 ``WritePlan`` (resolve-once policy), the single-tensor ``write``, the
 backend registry (``oracle``, ``lanes_ref``, ``cuda``, ``exact``), the
-device-resident ``WriteStats`` and the physical addressing layer
-(``AddressSpec``, ``AddressState``).
+device-resident ``WriteStats``, the physical addressing layer
+(``AddressSpec``, ``AddressState``) and ``MemoryRegion``, a tree of
+tensors that is written, ages and is scrubbed in approximate memory.
 """
 from repro_torch.memory.address import (  # noqa: F401
     AddressSpec, AddressState)
@@ -12,4 +13,5 @@ from repro_torch.memory.backends import (  # noqa: F401
     register_backend)
 from repro_torch.memory.plan import (  # noqa: F401
     WritePlan, leaf_vectors, write)
+from repro_torch.memory.region import MemoryRegion  # noqa: F401
 from repro_torch.memory.stats import WriteStats  # noqa: F401

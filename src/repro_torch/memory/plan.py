@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -90,7 +90,8 @@ def leaf_vectors(dtype: torch.dtype, level: Priority, device: torch.device
 
 
 def _approximate(leaf, tag: Priority) -> bool:
-    """Floating-point leaves that are not EXACT go through the driver."""
+    """The engine's rule: floating-point leaves that are not EXACT go
+    through the driver; integer and EXACT-pinned leaves bypass it."""
     return leaf.dtype.is_floating_point and tag != Priority.EXACT
 
 
@@ -111,6 +112,7 @@ def _stuck_gate(old: torch.Tensor, new: torch.Tensor, worn: torch.Tensor
 class WritePlan:
     backend: Backend
     paths: Tuple[Tuple[Any, ...], ...]
+    treedef: T.TreeDef
     leaf_levels: Tuple[Optional[Priority], ...]
     leaf_seq_axis: Tuple[Optional[int], ...]
     device: torch.device
@@ -123,24 +125,33 @@ class WritePlan:
 
     @classmethod
     def for_tree(cls, tree: Any, *, device, backend: str,
-                 axes: Any, soft_error_ber: float = 0.0,
+                 policy: Callable[..., Any] = kv_cache_policy,
+                 axes: Any = None, soft_error_ber: float = 0.0,
                  soft_error_hardened: bool = True,
-                 address_spec: Optional[A.AddressSpec] = None
+                 address_spec: Optional[A.AddressSpec] = None,
+                 approx_if: Callable[[Any, Priority], bool] = _approximate
                  ) -> "WritePlan":
-        """Resolve ``kv_cache_policy`` over ``tree`` (leaves need only
-        ``dtype``) for the registry backend ``backend``. ``axes`` is a
-        same-structure tree of logical-axis tuples; leaves whose tuple
-        holds ``"kv_seq"`` get the column-scoped decode write.
-        ``soft_error_ber > 0`` turns the post-write upset hook on;
-        ``address_spec`` the addressing layer."""
+        """Resolve ``policy(path, leaf)`` over ``tree`` (leaves need only
+        ``dtype``) for the registry backend ``backend``; ``approx_if(leaf,
+        tag)`` decides which leaves go through the driver. ``axes`` is
+        None (no column-scoped leaf) or a same-structure tree of
+        logical-axis tuples; leaves whose tuple holds ``"kv_seq"`` get
+        the column-scoped decode write. ``soft_error_ber > 0`` turns the
+        post-write upset hook on; ``address_spec`` the addressing
+        layer."""
         device = torch.device(device)
-        flat = T.flatten(tree)
+        flat, treedef = T.flatten_with_def(tree)
         levels = []
         for path, leaf in flat:
-            tag = Priority.coerce(kv_cache_policy(path, leaf))
-            levels.append(tag if _approximate(leaf, tag) else None)
-        seq_axis = tuple(ax.index("kv_seq") if "kv_seq" in ax else None
-                         for _, ax in T.flatten(axes))
+            tag = Priority.coerce(policy(path, leaf))
+            levels.append(tag if approx_if(leaf, tag) else None)
+        if axes is None:
+            seq_axis = (None,) * len(flat)
+        else:
+            seq_axis = tuple(
+                ax.index("kv_seq")
+                if isinstance(ax, tuple) and "kv_seq" in ax else None
+                for ax in treedef.flatten_up_to(axes))
         floor_vectors = {
             floor: tuple(
                 leaf_vectors(leaf.dtype, max(lvl, floor), device)
@@ -148,12 +159,16 @@ class WritePlan:
                 for (_, leaf), lvl in zip(flat, levels))
             for floor in Priority}
         return cls(backend=get_backend(backend),
-                   paths=tuple(p for p, _ in flat),
+                   paths=tuple(p for p, _ in flat), treedef=treedef,
                    leaf_levels=tuple(levels), leaf_seq_axis=seq_axis,
                    device=device, floor_vectors=floor_vectors,
                    soft_error_ber=soft_error_ber,
                    soft_error_hardened=soft_error_hardened,
                    address_spec=address_spec)
+
+    def unflatten(self, leaves: Sequence[Any]) -> Any:
+        """A tree of the plan's structure from its flat leaves."""
+        return self.treedef.unflatten(list(leaves))
 
     def vectors_for(self, floor: Priority
                     ) -> Tuple[Optional[LeafVectors], ...]:
@@ -309,7 +324,7 @@ class WritePlan:
                                       self._worn_elem(i, o, shifts, worn))
             stored.append(s)
             acc = acc + st
-        return T.unflatten(list(self.paths), stored), acc
+        return self.unflatten(stored), acc
 
     def write_columns(self, key: np.ndarray, old_tree: Any, new_tree: Any,
                       pos: torch.Tensor, vectors: Sequence,
@@ -361,7 +376,26 @@ class WritePlan:
                                           wm)
             stored.append(n.scatter(ax, idx, s_col))
             acc = acc + st
-        return T.unflatten(list(self.paths), stored), acc
+        return self.unflatten(stored), acc
+
+    # ------------------------------------------------------ shape metadata
+    def approx_bits(self, tree: Any) -> int:
+        """Bits of the approximate leaves: static shape metadata."""
+        return sum(leaf.numel() * bits_of(leaf.dtype)
+                   for leaf, lvl in zip(T.leaves(tree), self.leaf_levels)
+                   if lvl is not None)
+
+    def decode_bits(self, tree: Any) -> int:
+        """Approximate bits one decode step addresses: the written ring
+        column of each sequence-axis leaf, whole leaves otherwise."""
+        total = 0
+        for leaf, lvl, ax in zip(T.leaves(tree), self.leaf_levels,
+                                 self.leaf_seq_axis):
+            if lvl is None:
+                continue
+            n = leaf.numel() if ax is None else leaf.numel() // leaf.shape[ax]
+            total += n * bits_of(leaf.dtype)
+        return total
 
 
 def write(key: np.ndarray, old: torch.Tensor, new: torch.Tensor, *,

@@ -16,8 +16,11 @@ same names and values. Domains (who the parent key is):
 The counter hash the lane kernels, their twins and the decay sampler
 share is keyed on (seed, flat index, bit plane). The trace generators
 (``repro_torch.workload.generators``) fold ``WORKLOAD_OFFSET + i`` off
-the workload root key ``PRNGKey(seed)`` for event ``i``. The checkpoint
-streams belong to a slice not ported yet.
+the workload root key ``PRNGKey(seed)`` for event ``i``. The
+checkpointer's restore folds ``CHECKPOINT_RESTORE_OFFSET + step`` off
+``PRNGKey(extent_seed)`` (``checkpoint-restore-root``), and its scrub
+``RESTORE_SCRUB_OFFSET + i`` off that step key
+(``checkpoint-restore-step``).
 """
 from __future__ import annotations
 
@@ -48,6 +51,13 @@ SCRUB_OFFSET = 3_000_017
 #: ContinuousScheduler's per-pass scrub key, folded off the decode root.
 SCHEDULER_SCRUB_PASS_OFFSET = 1_000_000
 
+#: Checkpointer.restore per-step integrity stream (disjoint from
+#: save(step + 1)'s PRNGKey(extent_seed + step) write streams).
+CHECKPOINT_RESTORE_OFFSET = 4_000_037
+#: restore-integrity scrub per leaf, off the restore step key: equal to
+#: SOFT_ERROR_OFFSET in value, in another parent-key domain.
+RESTORE_SCRUB_OFFSET = 1_000_003
+
 #: trace generators: per-event sub-streams folded off the workload root
 #: key, so a generated trace is reproducible from (preset, seed) alone.
 WORKLOAD_OFFSET = 5_000_011
@@ -70,6 +80,14 @@ STREAMS: Tuple[Stream, ...] = (
     Stream("scheduler-scrub-pass", SCHEDULER_SCRUB_PASS_OFFSET,
            "serve-decode-root",
            "one key per scrub pass: fold_in(key, off + pass_index)",
+           span=INDEX_SPAN),
+    Stream("checkpoint-restore", CHECKPOINT_RESTORE_OFFSET,
+           "checkpoint-restore-root",
+           "restore integrity per step: fold_in(root, off + step)",
+           span=INDEX_SPAN),
+    Stream("restore-scrub", RESTORE_SCRUB_OFFSET,
+           "checkpoint-restore-step",
+           "restore scrub per leaf: fold_in(step_key, off + i)",
            span=INDEX_SPAN),
     Stream("workload-event", WORKLOAD_OFFSET, "workload-root",
            "trace generators per event: fold_in(root, off + event_index)",

@@ -17,10 +17,19 @@ from typing import Any, Dict
 import torch
 
 
+#: bytes ``popcount`` looks up at a time (its int64 index is 8x as large)
+POPCOUNT_CHUNK = 1 << 26
+
+
 def popcount(m: torch.Tensor) -> torch.Tensor:
     """Set bits of an integer tensor, summed to a 0-d int64 (a 256-entry
-    byte table: torch has no popcount)."""
-    return popcount_rows(m.reshape(1, -1))[0]
+    byte table: torch has no popcount), ``POPCOUNT_CHUNK`` bytes at a
+    time."""
+    b = m.reshape(-1).contiguous().view(torch.uint8)
+    if b.numel() <= POPCOUNT_CHUNK:
+        return popcount_rows(b.reshape(1, -1))[0]
+    return sum(popcount_rows(c.reshape(1, -1))[0]
+               for c in b.split(POPCOUNT_CHUNK))
 
 
 def popcount_rows(m: torch.Tensor) -> torch.Tensor:
@@ -79,24 +88,38 @@ class WriteStats:
     def bits_written(self) -> torch.Tensor:
         return self.flips01 + self.flips10
 
+    def packed(self) -> torch.Tensor:
+        """The seven fields as one float64 (7,) device tensor (exact:
+        float32 energies widen exactly, counters stay below 2^53), so a
+        caller can join them to one host transfer with others."""
+        return torch.stack([self.energy_pj.to(torch.float64),
+                            self.latency_ns.to(torch.float64),
+                            *(getattr(self, k).to(torch.float64) for k in (
+                                "flips01", "flips10", "errors",
+                                "soft_strikes", "bits_total"))])
+
     def host_dict(self) -> Dict[str, Any]:
         """Sync to the host (one transfer of seven scalars) and derive the
         report quantities."""
-        h = torch.stack([self.flips01, self.flips10, self.errors,
-                         self.soft_strikes, self.bits_total]).tolist()
-        e = torch.stack([self.energy_pj, self.latency_ns]).tolist()
-        f01, f10, errors, strikes, bits_total = (int(v) for v in h)
-        bits_written = f01 + f10
-        return {
-            "energy_pj": float(e[0]),
-            "latency_ns": float(e[1]),
-            "flips01": f01,
-            "flips10": f10,
-            "bits_written": bits_written,
-            "bits_total": bits_total,
-            "bit_errors": errors,
-            "soft_strikes": strikes,
-            "write_skip_rate": (1.0 - bits_written / bits_total
-                                if bits_total else 0.0),
-            "ber_realized": errors / max(1, bits_written),
-        }
+        return report_of(self.packed().tolist())
+
+
+def report_of(h) -> Dict[str, Any]:
+    """The report quantities of ``WriteStats.packed()``'s seven host
+    values."""
+    e, lat = float(h[0]), float(h[1])
+    f01, f10, errors, strikes, bits_total = (int(v) for v in h[2:7])
+    bits_written = f01 + f10
+    return {
+        "energy_pj": e,
+        "latency_ns": lat,
+        "flips01": f01,
+        "flips10": f10,
+        "bits_written": bits_written,
+        "bits_total": bits_total,
+        "bit_errors": errors,
+        "soft_strikes": strikes,
+        "write_skip_rate": (1.0 - bits_written / bits_total
+                            if bits_total else 0.0),
+        "ber_realized": errors / max(1, bits_written),
+    }

@@ -36,7 +36,7 @@ def init_from_descs(seed: int, descs: Any, dtype: torch.dtype,
     drawn in float32 a bounded chunk at a time."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    flat = T.flatten(descs)
+    flat, tdef = T.flatten_with_def(descs)
     out = []
     for _, d in flat:
         if d.axes and d.axes[-1] in ("norm_scale", "bias"):
@@ -53,7 +53,7 @@ def init_from_descs(seed: int, descs: Any, dtype: torch.dtype,
                                     device=device, dtype=torch.float32)
                         * std)
         out.append(w)
-    return T.unflatten([p for p, _ in flat], out)
+    return tdef.unflatten(out)
 
 
 def param_count(descs: Any) -> int:

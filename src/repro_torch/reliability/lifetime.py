@@ -46,8 +46,11 @@ own die's temperature: ``vectors_for_dies`` gives per-slot threshold
 rows (``SlotThresholds``: host rows decide which planes are live, the
 same rows on the device are the compare operand, uploaded once per
 change of ambients). The hash stays over (seed, flat element, plane),
-so heating one die never moves another die's decay record. The
-checkpoint integrity pass belongs to a later slice.
+so heating one die never moves another die's decay record.
+
+``decay_tensor`` decays one tensor over one dwell (the same sampler,
+seeded from the key's bits), and ``RestoreIntegrity`` configures the
+checkpoint restore's decay-and-scrub pass (``train.checkpoint``).
 """
 from __future__ import annotations
 
@@ -185,6 +188,19 @@ def _decay_leaf(seed: int, x: torch.Tensor, thr
     return (x.view(it) ^ mask).view(x.dtype), mask, flips
 
 
+def decay_tensor(key: np.ndarray, x: torch.Tensor, *, level: Priority,
+                 ambient_k: float, dwell_s: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-tensor retention decay: ``x`` sat ``dwell_s`` seconds at
+    ``ambient_k`` kelvin after a ``level`` write. Returns (decayed, flip
+    mask (``int_type`` view), n_flips 0-d int64): the checkpoint's
+    restore integrity pass rides on it. ``key`` is a host threefry key;
+    its ``bits`` are the hash seed, as in the reference."""
+    thr = _retention_thresholds(x.dtype, Priority.coerce(level),
+                                float(ambient_k), float(dwell_s))
+    return _decay_leaf(rng.seed_u32(key), x, thr)
+
+
 @dataclasses.dataclass(frozen=True)
 class LifetimeState:
     """Per-region lifetime state: device tensors, one mask per flat leaf
@@ -254,16 +270,19 @@ class LifetimePlan:
 
     # ------------------------------------------------------------- operands
     def vectors_for(self, floor: Priority = Priority.LOW,
-                    ambient_k: Optional[float] = None
+                    ambient_k: Optional[float] = None,
+                    dwell_s: Optional[float] = None
                     ) -> Tuple[Optional[np.ndarray], ...]:
-        """Per-leaf decay thresholds for one (floor, ambient) pair —
+        """Per-leaf decay thresholds for one (floor, ambient, dwell) —
         ``None`` for exact leaves. The ambient override is how a
         temperature schedule runs: the host swaps operands between
-        bursts."""
+        bursts; ``dwell_s`` overrides the plan's dwell (a region aging
+        several steps in one draw)."""
         t_k = self.ambient_k if ambient_k is None else float(ambient_k)
+        dw = self.dwell_s if dwell_s is None else float(dwell_s)
         floor = Priority.coerce(floor)
         return tuple(
-            _retention_thresholds(dt, max(lvl, floor), t_k, self.dwell_s)
+            _retention_thresholds(dt, max(lvl, floor), t_k, dw)
             if lvl is not None else None
             for dt, lvl in zip(self.leaf_dtypes, self.plan.leaf_levels))
 
@@ -443,15 +462,19 @@ class LifetimePlan:
 
     # -------------------------------------------------------------- advance
     def advance(self, key: np.ndarray, tree: Any, state: LifetimeState,
-                vectors: Optional[Sequence[Any]] = None
+                vectors: Optional[Sequence[Any]] = None, *,
+                count_write: bool = True, steps: int = 1
                 ) -> Tuple[Any, LifetimeState]:
-        """One decode step's dwell: sample decay on every stored bit of
-        the approximate leaves, XOR the flips into the masks, bump the
-        clock and the write counters (the step re-wrote the leaves before
-        dwelling). ``vectors`` holds per leaf (nbits,) thresholds or
-        per-slot ``SlotThresholds`` (``vectors_for_dies``). Reads nothing
-        from the device. ``key`` is the step's write key; leaf ``i``
-        folds ``RETENTION_OFFSET + i`` off it, so the write and sampling
+        """One dwell interval: sample decay on every stored bit of the
+        approximate leaves, XOR the flips into the masks and move the
+        clock ``steps`` steps (the steps the caller's ``vectors`` cover:
+        one draw, the process is memoryless). ``count_write`` (a decode
+        step, which re-wrote the leaves before dwelling) also books the
+        write counters; a pure dwell (``MemoryRegion.age``) books no
+        wear. ``vectors`` holds per leaf (nbits,) thresholds or per-slot
+        ``SlotThresholds`` (``vectors_for_dies``). Reads nothing from the
+        device. ``key`` is the step's write key; leaf ``i`` folds
+        ``RETENTION_OFFSET + i`` off it, so the write and sampling
         schedule is the same with retention on or off."""
         if self.immortal:
             return tree, state
@@ -472,13 +495,16 @@ class LifetimePlan:
             out.append(decayed)
             masks[i] = masks[i] ^ dmask
             flips = flips + n
-        step = state.step + 1
-        approx = self._approx
-        return T.unflatten(list(self.plan.paths), out), dataclasses.replace(
-            state, step=step, masks=tuple(masks), retention_flips=flips,
-            write_count=state.write_count + approx,
-            last_write_step=torch.where(approx > 0, step,
-                                        state.last_write_step))
+        step = state.step + steps
+        state = dataclasses.replace(state, step=step, masks=tuple(masks),
+                                    retention_flips=flips)
+        if count_write:
+            approx = self._approx
+            state = dataclasses.replace(
+                state, write_count=state.write_count + approx,
+                last_write_step=torch.where(approx > 0, step,
+                                            state.last_write_step))
+        return self.plan.unflatten(out), state
 
     def clear_written(self, state: LifetimeState, pos: torch.Tensor,
                       active: torch.Tensor) -> LifetimeState:
@@ -540,3 +566,16 @@ class LifetimePlan:
                 new = torch.where(keep, sel, torch.zeros_like(sel))
             masks.append(m.index_copy(BATCH_AXIS, idx, new))
         return dataclasses.replace(state, masks=tuple(masks))
+
+
+@dataclasses.dataclass(frozen=True)
+class RestoreIntegrity:
+    """The checkpoint's pre-restore integrity pass
+    (``train.checkpoint``): approximate leaves sat in NVM ``dwell_s``
+    seconds at ``ambient_k`` kelvin, so their decay over that dwell is
+    sampled, then (``scrub``) corrected and re-written through the
+    checkpoint's backend, the re-write energy charged to the restore
+    report. ``scrub=False`` hands the decayed values back as they are."""
+    ambient_k: float = 350.0
+    dwell_s: float = 3600.0
+    scrub: bool = True

@@ -161,7 +161,7 @@ def scrub_tree(key: np.ndarray, tree: Any, state: LifetimeState,
         row_scrub_count=row_scrub,
         last_scrub_step=torch.where(done > 0, state.step,
                                     state.last_scrub_step))
-    return T.unflatten(list(plan.paths), out), state2, acc
+    return plan.unflatten(out), state2, acc
 
 
 def scrub_span_args(stats: WriteStats, policy, *, cols: int,

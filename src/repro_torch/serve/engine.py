@@ -169,7 +169,7 @@ def eager_extent_cache_write(key: np.ndarray, old_cache: Any,
             stored.append(s)
         else:
             stored.append(n)  # EXACT leaves are stored as they are
-    return T.unflatten([p for p, _ in T.flatten(new_cache)], stored), agg
+    return T.structure(new_cache).unflatten(stored), agg
 
 
 class ServingEngine:
@@ -268,7 +268,7 @@ class ServingEngine:
                                        T.leaves(owner_rows))):
             keep = self.plan.alias_keep(i, o, alias_cols)
             out.append(o if keep is None else torch.where(keep, w, o))
-        return T.unflatten(list(self.plan.paths), out)
+        return self.plan.unflatten(out)
 
     def burst(self, params, tok, cache, pos, key: np.ndarray, acc,
               slot_acc, active, vectors, life=None, rvec=None, shifts=None,

@@ -162,22 +162,18 @@ def test_telemetry_arms_match_the_reference(jparams, monkeypatch):  # noqa
 # ---------------------------------------------------------------------------
 
 def test_runner_registers_the_reference_modules():
-    """Thirteen modules: the reference runner's less retention_sweep
-    (memory regions) and fig13_access (training); the quick profile is
-    its own less retention_sweep."""
-    assert set(runner.BENCHES) == set(jrun.BENCHES) - {"retention_sweep",
-                                                       "fig13_access"}
-    assert len(runner.BENCHES) == 13
+    """Fourteen modules: the reference runner's less fig13_access
+    (training); the quick profile is the reference's."""
+    assert set(runner.BENCHES) == set(jrun.BENCHES) - {"fig13_access"}
+    assert len(runner.BENCHES) == 14
     assert set(runner.PAPER) | set(runner.SERVING) == set(runner.BENCHES)
     quick = runner.selected(quick=True)
-    assert quick == [n for n in jrun.QUICK_BENCHES
-                     if n != "retention_sweep"]
-    assert len(quick) == 8
+    assert quick == list(jrun.QUICK_BENCHES)
+    assert len(quick) == 9
     assert runner.selected(only="kernel_bench", quick=True) == [
         "kernel_bench"]
     assert runner.selected() == list(runner.BENCHES)
-    assert set(runner.METRIC_FNS) == set(jrun._METRIC_FNS) - {
-        "retention_sweep"}
+    assert set(runner.METRIC_FNS) == set(jrun._METRIC_FNS)
     # the modules with wall-clock claims can be measured without asserting
     assert set(runner.MEASURES) == {
         n for n in runner.SERVING if hasattr(getattr(runner, n),
