@@ -227,14 +227,16 @@ each printed as one JSON line:
                     decode columns flip nothing; the prefill's cross K/V
                     write (32, 4, 1500, 20, 64) bf16 = 122.9 M lanes and
                     a decode column against the twin and timed;
- 26. paper        — the paper's six results (Table 1, Figs. 2, 6, 12, 14
-                    and 15/16) through repro_torch.benchmarks.run's
+ 26. paper        — the paper's seven results (Table 1, Figs. 2, 6, 12, 13,
+                    14 and 15/16) through repro_torch.benchmarks.run's
                     functions on the card at the paper's sizes (Fig. 2 at
                     128 trajectories a current, Fig. 15 at 1000 corners
                     plus the Fig. 16 sweep at 4 x 250), each's seconds,
                     then again on the CPU in this process on the same host
                     draws, held against the card (bounds at
-                    ``PAPER_SUMMARY_RTOL``); the four kernels' launches
+                    ``PAPER_SUMMARY_RTOL``; Fig. 13's MiBench mixes equal,
+                    its measured streams, each device's own seeded model,
+                    printed); the four kernels' launches
                     over the card's runs (none expected); monte_carlo_wer
                     at n = 1000 (host draws and the card's integration
                     timed apart); the s-LLGS Euler step's ms and its
@@ -284,17 +286,48 @@ each printed as one JSON line:
                     embedding's 311.2 M-lane moment the write timed, and
                     the restore's decay (CUDA events) and scrub.
 
+ 30. train_reduced — one make_train_step step of every family's reduced
+                    config (qwen2.5-3b, dbrx-132b, recurrentgemma-2b,
+                    mamba2-2.7b, llava-next-mistral-7b, whisper-large-v3)
+                    on the card and on the CPU from the same parameters
+                    and batch, TF32 off: loss and gradient norm within
+                    TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL, the parameters
+                    within ``adamw_step_bound``; make_batch at qwen's
+                    vocabulary (151936, (2, 64)) on the card equal to the
+                    host's token for token, the device gumbels' largest
+                    difference from XLA's printed beside the margin; 4
+                    microbatches against the whole batch at ACCUM_RTOL;
+ 31. train        — qwen2.5-3b at published width and full depth (36
+                    layers, 3.09 G parameters, bf16 weights, float32
+                    moments), seq 4096, batch 2, full remat, donated
+                    state: TRAIN_WARMUP + TRAIN_TIMED steps, each step's
+                    ms (CUDA events), its batch's draw apart, loss, grad
+                    norm; tokens/s, peak memory, and 6 x active params x
+                    tokens / step time as a share of the bf16 peak (for
+                    reading only); at the same parameters the plain loss
+                    against a 2-microbatch accumulated step's;
+ 32. train_launcher
+                  — repro_torch.launch.train main through argv (qwen2.5-3b
+                    at full width, depth cut to CKPT_LAYERS, --compress,
+                    one asynchronous EXTENT save at step 2 of 3): the
+                    save's extent_write launches, one per changed moment
+                    leaf, held against its report, its stage seconds;
+                    then repro_torch.examples.train_lm_extent --steps 60
+                    on the card (saves, the restore at step 30, its
+                    "must learn" check).
+
 They run in the order build, kernel, scrub_kernel,
 local_attention_kernel, kv_quant_kernel, rng_device, reduced,
 reduced_hybrid, reduced_moe, reduced_families, full, retention,
 telemetry, shards, oracle, prefix, soft_errors, wear, sampling,
 workload, hybrid, moe, ssm, vlm, audio (each full-width model loads
 after the previous one is freed), paper, serving_bench,
-checkpoint_reduced, checkpoint; then the script's seconds (``done``),
-nvidia-smi's line again and the kernels
-line, where every entry adds its launches on each path
-(``launches_by_path``: ``serving_bench``, ``checkpoint_reduced`` and
-``checkpoint`` in all four), extent_write the MoE and
+checkpoint_reduced, checkpoint, train_reduced, train, train_launcher;
+then the script's seconds (``done``), nvidia-smi's line again and the
+kernels line, where every entry adds its launches on each path
+(``launches_by_path``: ``serving_bench``, ``checkpoint_reduced``,
+``checkpoint``, ``train_reduced``, ``train`` and ``train_launcher`` in
+all four), extent_write the MoE and
 vlm admission writes and the audio prefill's cross K/V and decode
 column (``at.admission_moe``, ``at.admission_vlm``,
 ``at.prefill_cross_audio``, ``at.decode_column_audio``, and
@@ -3475,7 +3508,7 @@ def llgs_launches(noise, i_write):
 
 
 def phase_paper(device):
-    """The paper's six results through the port's benchmark runner on the
+    """The paper's seven results through the port's benchmark runner on the
     card at the paper's sizes, then on the CPU in this process on the
     same host draws, held against each other; the s-LLGS loop's and the
     variation study's times, draws apart."""
@@ -3521,6 +3554,13 @@ def phase_paper(device):
     if worst["fig15_variation"] > PAPER_SUMMARY_RTOL:
         k = max(diffs, key=diffs.get)
         raise AssertionError(f"paper: fig15 {k} {diffs[k]:.3g} apart")
+    # Fig. 13: the MiBench mixes equal; the measured streams are each
+    # device's own (its seeded reduced model), printed
+    if card["fig13_access"]["mibench"] != host["fig13_access"]["mibench"]:
+        raise AssertionError("paper: fig13's MiBench mixes differ")
+    fig13 = {where: {k: out["fig13_access"][k] for k in (
+        "kv_decode_stream", "optimizer_moment_stream")}
+        for where, out in (("card", card), ("cpu", host))}
     # Fig. 2: Monte-Carlo WERs within the decisions bound, Eq. 1 equal
     n_fig2, fig2_differ = 128, 0
     for k, v in card["fig2_switching"].items():
@@ -3606,7 +3646,8 @@ def phase_paper(device):
               "approx": card["fig15_variation"][
                   "fig15_approx_write_energy"]["mean"]},
           "fig14_mean_saving_vs_basic":
-              card["fig14_energy"]["mean_saving_vs_basic"]})
+              card["fig14_energy"]["mean_saving_vs_basic"],
+          "fig13_mibench_equal": True, "fig13_measured": fig13})
     return launches
 
 
@@ -4199,6 +4240,359 @@ def phase_checkpoint(device):
     return launches, timing, scrub_timing
 
 
+#: every family's reduced config of the train_reduced phase
+TRAIN_FAMILIES = ("qwen2.5-3b", "dbrx-132b", "recurrentgemma-2b",
+                  "mamba2-2.7b", "llava-next-mistral-7b", "whisper-large-v3")
+#: card against CPU after one train step of a reduced config, from the
+#: same parameters and batch: the loss and the gradient norm relative, at
+#: 3x the largest card-versus-CPU difference measured over the six
+#: families (whisper-large-v3's 7.19e-6 and 1.49e-2; float32, TF32 off:
+#: the random reduced stacks amplify reduction-order differences, as on
+#: the CPU against the reference); the parameters are held at the derived
+#: bound ``adamw_step_bound``
+TRAIN_LOSS_RTOL = 2.2e-5
+TRAIN_GNORM_RTOL = 4.5e-2
+#: the accumulation check's loss bound on the card: the reference test's
+#: float32 rtol (measured 6.4e-8)
+ACCUM_RTOL = 2e-5
+#: the full-width run: qwen2.5-3b at the train_4k cell's length, batch 2
+TRAIN_SEQ, TRAIN_BATCH = 4096, 2
+TRAIN_WARMUP, TRAIN_TIMED = 2, 4
+#: bfloat16 model, 2 microbatches against the whole batch: the losses
+#: at the same parameters, relative, at the reference test's float32
+#: rtol (the loss is a float32 sum over rows computed alike; measured
+#: 6.8e-8)
+TRAIN_ACCUM_RTOL = 2e-5
+
+
+def train_batch(cfg, seed: int):
+    """A seeded CPU batch of ``test_models_smoke``'s shapes (B 2, S 32;
+    whisper 16 decoder tokens over 32 frames; llava's labels over its
+    image positions too), the next-token labels IGNOREd at the end."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    B, S = 2, 32
+    V = cfg.vocab_size
+    if cfg.family == "audio":
+        return {"frames": torch.randn(B, S, cfg.d_model, generator=g),
+                "tokens": torch.randint(0, V, (B, 16), generator=g),
+                "labels": torch.randint(0, V, (B, 16), generator=g)}
+    if cfg.family == "vlm":
+        return {"image_embeds": torch.randn(B, cfg.num_image_tokens,
+                                            cfg.vision_dim, generator=g),
+                "tokens": torch.randint(0, V, (B, S - cfg.num_image_tokens),
+                                        generator=g),
+                "labels": torch.randint(0, V, (B, S), generator=g)}
+    toks = torch.randint(0, V, (B, S), generator=g)
+    return {"tokens": toks,
+            "labels": torch.cat([toks[:, 1:], torch.full((B, 1), -1)], 1)}
+
+
+def adamw_step_bound(lr: float, params) -> float:
+    """The most two first AdamW steps from the same parameters can leave
+    them apart, whatever their gradients: each moves an element by lr *
+    g / (|g| + eps) plus the same decay term, so by less than lr either
+    way; plus one float32 rounding of each result."""
+    from repro_torch import tree as T
+    top = max(float(x.abs().max()) for x in T.leaves(params))
+    return 2.0 * lr + 2.0 * top * 2.0 ** -23
+
+
+def phase_train_reduced(device):
+    """One make_train_step step of every family's reduced config on the
+    card and on the CPU from the same parameters and batch (TF32 off):
+    loss, gradient norm and the updated parameters held against each
+    other; a make_batch at qwen2.5-3b's full vocabulary (151936, shape
+    (2, 64): 19.4 M draws) drawn on the card equal to the host's token
+    for token; 4 microbatches against the whole batch on the card."""
+    import torch
+    from repro_torch import rng
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.accumulate import AccumConfig, make_accum_train_step
+    from repro_torch.train.train_step import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = torch.device("cpu")
+    reset_launches()
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    fams = {}
+    for arch in TRAIN_FAMILIES:
+        api = get_model(get_config(arch).reduced())
+        step = make_train_step(api, ocfg)
+        p_cpu = api.init(0, cpu)
+        b_cpu = train_batch(api.cfg, 1)
+        out = {}
+        for where, dev in (("card", device), ("cpu", cpu)):
+            p = T.tree_map(lambda x: x.to(dev), p_cpu)
+            b = {k: v.to(dev) for k, v in b_cpu.items()}
+            t0 = time.perf_counter()
+            p2, s2, m = step(p, opt.init(p), b)
+            loss = float(m["loss"])
+            out[where] = (T.tree_map(lambda x: x.cpu(), p2), m, loss,
+                          time.perf_counter() - t0)
+        pk, mk, lk, sk = out["card"]
+        pc, mc, lc, sc = out["cpu"]
+        lr = float(mc["lr"])
+        d_param = max(float((a - b).abs().max())
+                      for a, b in zip(T.leaves(pk), T.leaves(pc)))
+        moved_lr = sum(int(((a - b).abs() > lr).sum())
+                       for a, b in zip(T.leaves(pk), T.leaves(pc)))
+        res = {"loss_card": lk, "loss_cpu": lc,
+               "loss_rel": abs(lk - lc) / abs(lc),
+               "grad_norm_card": float(mk["grad_norm"]),
+               "grad_norm_cpu": float(mc["grad_norm"]),
+               "grad_norm_rel": abs(float(mk["grad_norm"])
+                                    - float(mc["grad_norm"]))
+               / float(mc["grad_norm"]),
+               "param_max_abs_diff": d_param,
+               "param_bound": adamw_step_bound(lr, p_cpu),
+               "elements_apart_by_more_than_lr": moved_lr,
+               # as a fraction of each leaf's largest value
+               "param_max_rel_diff": max(
+                   float((a - b).abs().max() / b.abs().max().clamp_min(
+                       1e-30)) for a, b in zip(T.leaves(pk), T.leaves(pc))),
+               "card_s": sk, "cpu_s": sc,
+               "metrics": sorted(mk)}
+        if not (math.isfinite(lk) and res["loss_rel"] <= TRAIN_LOSS_RTOL
+                and res["grad_norm_rel"] <= TRAIN_GNORM_RTOL
+                and d_param <= res["param_bound"]
+                and sorted(mk) == sorted(mc)):
+            raise AssertionError(f"train_reduced: {arch} card against CPU "
+                                 f"{res}")
+        fams[arch] = res
+    # the data pipeline at qwen2.5-3b's vocabulary, card against host
+    dcfg = data_mod.DataConfig(get_config("qwen2.5-3b").vocab_size, 64, 2)
+    t0 = time.perf_counter()
+    card = data_mod.make_batch(dcfg, 0, device)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = data_mod.make_batch(dcfg, 0, cpu)
+    host_s = time.perf_counter() - t0
+    if not all(torch.equal(card[k].cpu(), host[k]) for k in card):
+        raise AssertionError("train_reduced: the card's make_batch differs "
+                             "from the host's")
+    k1 = rng.split(rng.fold_in(rng.PRNGKey(dcfg.seed), 0))[0]
+    logits = rng.xla_log(data_mod._zipf_probs(dcfg))
+    _, err_card = rng.categorical_xla_t(k1, logits, (2, 64), device,
+                                        with_err=True)
+    _, err_host = rng.categorical_xla_t(k1, logits, (2, 64), cpu,
+                                        with_err=True)
+    if max(err_card, err_host) > rng.CATEGORICAL_MARGIN / 2:
+        raise AssertionError(f"train_reduced: device gumbels {err_card} / "
+                             f"{err_host} from XLA's")
+    # accumulation on the card: 4 microbatches against the whole batch
+    api = get_model(get_config("qwen2.5-3b").reduced())
+    params = api.init(0, device)
+    acfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = data_mod.make_batch(data_mod.DataConfig(
+        api.cfg.vocab_size, 16, 8, seed=3), 0, device)
+    _, _, m1 = make_train_step(api, acfg)(params, opt.init(params), batch)
+    _, _, _, m4 = make_accum_train_step(api, acfg, AccumConfig(
+        num_microbatches=4))(params, opt.init(params), None, batch)
+    acc_rel = abs(float(m1["loss"]) - float(m4["loss"])) / float(m1["loss"])
+    if acc_rel > ACCUM_RTOL:
+        raise AssertionError(f"train_reduced: accumulation {acc_rel}")
+    launches = read_launches()
+    emit({"phase": "train_reduced", "tf32": False, "families": fams,
+          "bounds": {"loss_rtol": TRAIN_LOSS_RTOL,
+                     "grad_norm_rtol": TRAIN_GNORM_RTOL,
+                     "params": "adamw_step_bound: 2 lr + 2 float32 ulps"},
+          "make_batch_qwen_vocab": {
+              "vocab": dcfg.vocab_size, "shape": [2, 64],
+              "draws": 2 * 64 * dcfg.vocab_size,
+              "card_equals_host": True, "card_s": card_s, "host_s": host_s,
+              "device_gumbel_max_err": {"card": err_card, "host": err_host},
+              "margin": rng.CATEGORICAL_MARGIN},
+          "accum_4_microbatches": {"loss_full": float(m1["loss"]),
+                                   "loss_accum": float(m4["loss"]),
+                                   "rel": acc_rel, "rtol": ACCUM_RTOL},
+          "launches": launches, "ok": True})
+    return launches
+
+
+def phase_train(device):
+    """qwen2.5-3b at published width and full depth (36 layers, bf16
+    weights, float32 moments) training at the train_4k cell's length
+    (4096) with batch 2 and full remat: TRAIN_WARMUP + TRAIN_TIMED steps
+    of make_train_step (donated state), each step timed by CUDA events
+    and its batch's draw apart; then, at the same parameters, the plain
+    step's loss against a 2-microbatch make_accum_train_step step. At
+    full depth the float32 sum of squares of the seeded init's gradients
+    overflows, as the reference's ``global_norm`` would: grad_norm is inf
+    and the clip scale 0, so a step does all of its work but moves the
+    weights by their decay only (printed as ``grad_norm_finite``)."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.launch import hw as H
+    from repro_torch.models import get_model
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.accumulate import AccumConfig, make_accum_train_step
+    from repro_torch.train.train_step import loss_fn, make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    cfg = get_config("qwen2.5-3b")
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(0, device)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in T.leaves(params))
+    ocfg = opt.AdamWConfig(warmup_steps=2, total_steps=100)
+    step = make_train_step(api, ocfg, remat=True, donate=True)
+    dcfg = data_mod.DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    steps = []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batch = data_mod.make_batch(dcfg, i, device)
+        torch.cuda.synchronize()
+        data_ms = (time.perf_counter() - t) * 1e3
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, m = step(params, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        steps.append({"step": i, "step_ms": start.elapsed_time(end),
+                      "data_ms": data_ms, "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "lr": float(m["lr"]), "tokens": float(m["tokens"])})
+        if not math.isfinite(steps[-1]["loss"]):
+            raise AssertionError(f"train: step {i} {steps[-1]}")
+    timed = steps[TRAIN_WARMUP:]
+    step_ms = sorted(s["step_ms"] for s in timed)[len(timed) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    peak = torch.cuda.max_memory_allocated()
+    # accumulation at the same parameters (the next batch)
+    batch = data_mod.make_batch(dcfg, len(steps), device)
+    with torch.no_grad():
+        plain = float(loss_fn(api, params, batch)[0])
+    acc = make_accum_train_step(api, ocfg, AccumConfig(num_microbatches=2),
+                                donate=True)
+    _, _, _, ma = acc(params, state, None, batch)
+    accum = float(ma["loss"])
+    acc_rel = abs(accum - plain) / abs(plain)
+    if acc_rel > TRAIN_ACCUM_RTOL:
+        raise AssertionError(f"train: accumulated loss {accum} against "
+                             f"{plain}")
+    peak_accum = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    del params, state, batch, m, ma
+    gc.collect()
+    torch.cuda.empty_cache()
+    active = api.active_params_per_token()
+    emit({"phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
+          "params": n_params, "param_dtype": cfg.param_dtype,
+          "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "remat": "full",
+          "init_s": init_s, "steps": steps,
+          "step_ms_median_timed": step_ms,
+          "tokens_per_s": tokens / (step_ms / 1e3),
+          "data_ms_mean_timed": sum(s["data_ms"] for s in timed)
+          / len(timed),
+          "grad_norm_finite": all(math.isfinite(s["grad_norm"])
+                                  for s in steps),
+          "peak_mem_bytes": peak, "peak_mem_bytes_with_accum": peak_accum,
+          "model_flops_share_of_bf16_peak_for_reading_only":
+              6 * active * tokens / (step_ms / 1e3) / H.PEAK_FLOPS_BF16,
+          "accum_2_microbatches": {"loss_plain": plain,
+                                   "loss_accum": accum, "rel": acc_rel,
+                                   "rtol": TRAIN_ACCUM_RTOL},
+          "launches": launches, "ok": True})
+    return launches
+
+
+def phase_train_launcher(device):
+    """The port's launch/train.py main through argv: qwen2.5-3b at full
+    width, depth cut to CKPT_LAYERS, --compress, an asynchronous EXTENT
+    checkpoint at step 2 of 3 (seq 2048, batch 2): its extent_write
+    launches (one per changed moment leaf) held against its report, its
+    stage seconds printed. Then repro_torch.examples.train_lm_extent
+    --steps 60 on the card: its saves, the restore at step 30 and its
+    "must learn" check."""
+    import dataclasses
+    import io
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.examples import train_lm_extent
+    from repro_torch.launch import train as launch_train
+    root = CKPT_DIR / "launcher"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def cut(arch):
+        return dataclasses.replace(get_config(arch), num_layers=CKPT_LAYERS)
+
+    reset_launches()
+    launch_train.get_config = cut
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = launch_train.main([
+                "--compress", "--ckpt-dir", str(root), "--ckpt-every", "2",
+                "--steps", "3", "--seq", "2048", "--batch", "2"])
+    finally:
+        launch_train.get_config = get_config
+    torch.cuda.synchronize()
+    launcher_s = time.perf_counter() - t0
+    launches = read_launches()
+    rep = out["save_report"]
+    # every float leaf but bfloat16 goes through the write (at its level;
+    # at full width the weights are bf16, so only the moments)
+    manifest = json.loads((root / "step_000000002" / "manifest.json"
+                           ).read_text())
+    written = [e["path"] for e in manifest["leaves"]
+               if e["dtype"] in ("float16", "float32", "float64")]
+    changed = len(written) - rep["skipped_leaves"]
+    moments = sum(".m[" in p or ".v[" in p for p in written)
+    lines = buf.getvalue().splitlines()
+    if rep["step"] != 2 or launches["extent_write"] != changed \
+            or rep["energy_pj"] <= 0 or not lines[-1].startswith("done: ") \
+            or not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"train_launcher: {launches} against {rep}, "
+                             f"{lines}")
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = read_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_lm_extent.main(["--steps", "60", "--device", "cuda",
+                              "--ckpt-dir", str(root / "example")])
+    torch.cuda.synchronize()
+    example_s = time.perf_counter() - t0
+    ex = buf.getvalue().splitlines()
+    ex_launches = {k: v - before[k] for k, v in read_launches().items()}
+    if ex[-1] != "OK" or "step   30 !! simulated preemption -> restore" \
+            not in ex or not ex_launches["extent_write"]:
+        raise AssertionError(f"train_launcher: example {ex} "
+                             f"{ex_launches}")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    emit({"phase": "train_launcher", "arch": cut("qwen2.5-3b").name,
+          "reduced": {"num_layers": f"{CKPT_LAYERS} of "
+                                    f"{get_config('qwen2.5-3b').num_layers}"},
+          "argv": "--compress --ckpt-every 2 --steps 3 --seq 2048 "
+                  "--batch 2", "lines": lines, "seconds": launcher_s,
+          "save": {k: rep[k] for k in (
+              "step", "leaves", "skipped_leaves", "bytes", "energy_pj",
+              "bit_errors", "seconds", "stage_s")},
+          "save_launches": launches, "leaves_written": changed,
+          "moment_leaves": moments,
+          "example": {"argv": "--steps 60", "seconds": example_s,
+                      "lines": ex, "launches": ex_launches},
+          "ok": True})
+    return {k: launches[k] + ex_launches[k] for k in launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -4313,6 +4707,15 @@ def main() -> int:
             checkpoint=ck_launches[e["name"]])
     entries[0]["at"]["checkpoint_embed_moment"] = ck_timing
     entries[1]["at"]["checkpoint_embed_moment"] = ck_scrub
+    # the training loop, each phase with everything earlier freed
+    train_launches = {}
+    for phase in (phase_train_reduced, phase_train, phase_train_launcher):
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_launches[phase.__name__[len("phase_"):]] = phase(device)
+    for e in entries:
+        e["launches_by_path"].update(
+            {k: v[e["name"]] for k, v in train_launches.items()})
     emit({"phase": "done", "script_s": time.perf_counter() - t_start})
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": entries})

@@ -30,7 +30,8 @@ import torch
 
 from repro_torch.benchmarks import (endurance_sweep, fig2_switching,
                                     fig6_thermal, fig12_waveform,
-                                    fig14_energy, fig15_variation,
+                                    fig13_access, fig14_energy,
+                                    fig15_variation,
                                     kernel_bench, prefix_reuse,
                                     retention_sweep, serving_energy,
                                     shard_scaling, table1,
@@ -46,6 +47,7 @@ BENCHES: Dict[str, Callable[[bool, torch.device], Any]] = {
         n_mc=32 if fast else 128, device=dev),
     "fig6_thermal": lambda fast, dev: fig6_thermal.run(device=dev),
     "fig12_waveform": lambda fast, dev: fig12_waveform.run(device=dev),
+    "fig13_access": lambda fast, dev: fig13_access.run(device=dev),
     "fig14_energy": lambda fast, dev: fig14_energy.run(device=dev),
     "fig15_variation": lambda fast, dev: fig15_variation.run(
         n=200 if fast else 1000, device=dev),
@@ -83,7 +85,7 @@ MEASURES: Dict[str, Callable[[bool, torch.device], Any]] = {
 
 #: the paper's tables and figures
 PAPER = ("table1", "fig2_switching", "fig6_thermal", "fig12_waveform",
-         "fig14_energy", "fig15_variation")
+         "fig13_access", "fig14_energy", "fig15_variation")
 #: the serving stack's benchmarks
 SERVING = ("kernel_bench", "serving_energy", "retention_sweep",
            "endurance_sweep", "prefix_reuse", "workload_mixes",
@@ -121,6 +123,9 @@ def headline(name: str, out) -> str:
                 f"v_down={out['fig7_voltage_monotone_down']}")
     if name == "fig12_waveform":
         return json.dumps(out["checks"])
+    if name == "fig13_access":
+        return (f"kv_expensive_share="
+                f"{out['kv_decode_stream']['expensive_share']:.2f}")
     if name == "fig14_energy":
         return (f"mean_saving_vs_basic={out['mean_saving_vs_basic']:.3f} "
                 f"ordering={out['ordering_holds_all_workloads']}")

@@ -1,4 +1,4 @@
-"""Twins of the reference's serving-side examples (``examples/``), run as
-``python -m repro_torch.examples.<name>``: ``image_store_psnr`` and
-``serve_approx_kv``. Each takes ``--device`` (the card unless ``cpu`` is
-asked for)."""
+"""Twins of the reference's examples (``examples/``), run as
+``python -m repro_torch.examples.<name>``: ``image_store_psnr``,
+``serve_approx_kv``, ``quickstart`` and ``train_lm_extent``. Each takes
+``--device`` (the card unless ``cpu`` is asked for)."""

@@ -5,15 +5,21 @@ trees with a leading ``layers`` axis — so a tree converted from the JAX
 package (``repro_torch.convert``) drops in unchanged. ``init_from_descs``
 draws from a ``torch.Generator`` with the reference's per-descriptor
 scale rule (std = scale / sqrt(fan_in)); its numbers differ from JAX's.
+
+Training runs its layer stacks through ``unstack`` (one ``unbind`` per
+stacked leaf, whose backward stacks the L per-layer gradients once) and
+its remat units through ``remat_wrap``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
@@ -58,6 +64,69 @@ def init_from_descs(seed: int, descs: Any, dtype: torch.dtype,
 
 def param_count(descs: Any) -> int:
     return sum(math.prod(d.shape) for d in T.leaves(descs))
+
+
+def no_constrain(t, spec):
+    """The sharding constraint of a one-device program: the identity
+    (``sharding.rules.make_constrain`` returns it)."""
+    return t
+
+
+def specs_from_descs(descs: Any) -> Any:
+    """Descriptor tree -> the same tree of logical-axes tuples."""
+    return T.tree_map(lambda d: d.axes, descs)
+
+
+def shapes_from_descs(descs: Any) -> Any:
+    """Descriptor tree -> the same tree of shape tuples."""
+    return T.tree_map(lambda d: d.shape, descs)
+
+
+#: the products the ``"selective"`` policy saves: matrix products without
+#: batch dimensions (every ``x @ W`` of the models reaches aten as ``mm``
+#: on the flattened rows), JAX's ``dots_with_no_batch_dims_saveable``;
+#: ``bmm`` (attention's einsums, the MoE experts) is recomputed, as JAX
+#: recomputes a dot with batch dimensions
+SELECTIVE_SAVE = (torch.ops.aten.mm.default,)
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in SELECTIVE_SAVE
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn: Callable, remat) -> Callable:
+    """Remat policy of a layer-group body (the reference's ``remat_wrap``).
+
+    True/'full'  -> ``torch.utils.checkpoint``: the group's inputs are
+                    kept, everything else recomputed in the backward
+    'selective'  -> checkpoint that also keeps ``SELECTIVE_SAVE``'s
+                    outputs (the matmuls against the weights)
+    False        -> no checkpoint (every activation kept)
+    """
+    if remat is True or remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
+    if remat == "selective":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            preserve_rng_state=False, context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts,
+                _selective_policy))
+    if remat is False:
+        return fn
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def unstack(stack: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """A tree of per-layer stacks (leading ``layers`` axis) -> one tree
+    per layer, each leaf a view. One ``unbind`` per leaf: its backward
+    stacks the L gradients once (indexing layer by layer would build a
+    full-size zero gradient per layer)."""
+    flat, tdef = T.flatten_with_def(stack)
+    cols = [torch.unbind(leaf, 0) for _, leaf in flat]
+    return [tdef.unflatten([c[l] for c in cols])
+            for l in range(len(cols[0]))]
 
 
 def layer_at(stack: Dict[str, Any], l: int) -> Dict[str, Any]:

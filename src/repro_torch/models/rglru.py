@@ -1,5 +1,5 @@
 """RecurrentGemma, hybrid family: RG-LRU recurrent blocks and local attention
-in the pattern (R,R,A), serving half (prefill and decode_step).
+in the pattern (R,R,A): the training forward, prefill and decode_step.
 
 The counterpart of ``repro.models.rglru``. Parameters keep the reference's
 per-kind stacks (``rec`` one entry per R layer, ``att`` one per A layer,
@@ -18,7 +18,14 @@ Numerics that differ from the reference only in rounding order:
   ``associative_scan``) is a Hillis-Steele scan: ceil(log2 S) steps of
   whole-sequence tensor ops, not a loop over tokens;
 * the prefill attention goes through ``kernels.local_attention`` (the
-  CUDA kernel on the card, its plain version on the CPU).
+  CUDA kernel on the card, its plain version on the CPU); the training
+  forward's is the plain ``models.attention``, as the reference's is
+  (the kernel has no backward).
+
+The training forward runs the reference's groups: each (R,R,A) group of
+three layers (two recurrent blocks and one attention block, each with
+its MLP) is one remat unit, and the ``num_layers % 3`` tail layers (R
+blocks) run after the groups, outside any.
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ from repro_torch.kernels.local_attention import ops as local_ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (ParamDesc, embed_descs, embed_tokens,
                                        layer_at, mlp_apply, mlp_descs,
-                                       rms_norm, unembed)
+                                       no_constrain, remat_wrap, rms_norm,
+                                       unembed, unstack)
 
 _C_GATE = 8.0  # RG-LRU "c" constant
 
@@ -176,6 +184,40 @@ def att_block(lp, h: torch.Tensor, cfg: ModelConfig, positions,
 def _mlp_block(lp, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return h + mlp_apply(lp, rms_norm(h, lp["ln"], cfg.norm_eps),
                          cfg.mlp_act)
+
+
+def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                   remat=True, constrain=no_constrain):
+    """The training forward: (final-norm hidden states (B,S,D), {})."""
+    plen = len(cfg.block_pattern)
+    n_g, tail = divmod(cfg.num_layers, plen)
+    h = constrain(embed_tokens(params["embed"], tokens, cfg),
+                  ("batch", None, None))
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
+    rec, att, mlp = (unstack(params[k]) for k in ("rec", "att", "mlp"))
+
+    def att_train(lp, h):
+        x = rms_norm(h, lp["ln"], cfg.norm_eps)
+        q, k, v = attn.qkv_project(lp, x, cfg, positions)
+        a = attn.attention(q, k, v, window=cfg.local_window,
+                           softcap_val=0.0, positions=positions)
+        return h + attn.out_project(lp, a)
+
+    def group(h, g: int):
+        for s in range(2):
+            h = rec_block(rec[2 * g + s], h, cfg)[0]
+            h = _mlp_block(mlp[3 * g + s], h, cfg)
+        h = _mlp_block(mlp[3 * g + 2], att_train(att[g], h), cfg)
+        return constrain(h, ("batch", None, None))
+
+    body = remat_wrap(group, remat)
+    for g in range(n_g):
+        h = body(h, g)
+    for t in range(tail):
+        h = rec_block(rec[2 * n_g + t], h, cfg)[0]
+        h = _mlp_block(mlp[3 * n_g + t], h, cfg)
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), {}
 
 
 def _run_serving(params, h, cfg: ModelConfig, positions, cache, pos,

@@ -1,5 +1,5 @@
-"""Mamba2 (SSD, state-space duality), ssm family: the serving half
-(prefill and decode_step).
+"""Mamba2 (SSD, state-space duality), ssm family: the training forward
+(``hidden_forward``, one block a remat unit), prefill and decode_step.
 
 The counterpart of ``repro.models.ssm``. Parameters keep the reference's
 layouts (a ``layers`` stack of per-block leaves), so a converted tree drops
@@ -28,7 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (ParamDesc, embed_descs, embed_tokens,
-                                       layer_at, rms_norm, unembed)
+                                       layer_at, no_constrain, remat_wrap,
+                                       rms_norm, unembed, unstack)
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -181,6 +182,21 @@ def block_forward(lp, h: torch.Tensor, cfg: ModelConfig, state=None,
                  cfg.norm_eps)
     y = y * F.silu(z.float()).to(dtype)
     return h + y @ lp["out_proj"], new_state, new_conv
+
+
+def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                   remat=True, constrain=no_constrain):
+    """The training forward: (final-norm hidden states (B,S,D), {})."""
+    h = constrain(embed_tokens(params["embed"], tokens, cfg),
+                  ("batch", None, None))
+
+    def body(h, lp):
+        return constrain(block_forward(lp, h, cfg)[0], ("batch", None, None))
+
+    body = remat_wrap(body, remat)
+    for lp in unstack(params["layers"]):
+        h = body(h, lp)
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), {}
 
 
 def _run(params, h, cfg: ModelConfig, cache=None):

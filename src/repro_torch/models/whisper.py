@@ -1,5 +1,6 @@
-"""Whisper-large-v3 backbone, audio family: encoder-decoder transformer,
-serving half (prefill and decode_step).
+"""Whisper-large-v3 backbone, audio family: encoder-decoder transformer:
+the training forward (``encode``, ``decode_train``, ``hidden_forward``;
+one layer a remat unit on each side), prefill and decode_step.
 
 The counterpart of ``repro.models.whisper``. As in the reference the
 conv/mel frontend is a stub: the batch carries precomputed frame
@@ -28,8 +29,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (ParamDesc, layer_at, sinusoid_at,
-                                       sinusoid_positions)
+from repro_torch.models.layers import (ParamDesc, layer_at, no_constrain,
+                                       remat_wrap, sinusoid_at,
+                                       sinusoid_positions, unstack)
 
 #: the pool's cross-cache length: whisper's 30-second window of frames
 ENC_LEN = 1500
@@ -133,22 +135,63 @@ def _cross_kv(lp, enc_h: torch.Tensor, cfg: ModelConfig):
     return k, v
 
 
-def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(B,S_enc,D) frames -> the encoder's final hidden states."""
+def encode(params, frames: torch.Tensor, cfg: ModelConfig, *, remat=False,
+           constrain=no_constrain) -> torch.Tensor:
+    """(B,S_enc,D) frames -> the encoder's final hidden states; each layer
+    a remat unit under ``remat`` (serving runs it without)."""
     dtype = getattr(torch, cfg.compute_dtype)
     B, S, D = frames.shape
     h = frames.to(dtype) + sinusoid_positions(
         S, D, device=frames.device).to(dtype)[None]
+    h = constrain(h, ("batch", None, None))
     positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
     eps = cfg.norm_eps
-    for l in range(cfg.num_encoder_layers):
-        lp = layer_at(params["encoder"], l)
+
+    def body(h, lp):
         a, _ = _self_attn(lp["self"], layer_norm(h, lp["ln1_s"], lp["ln1_b"],
                                                  eps), cfg, positions,
                           causal=False)
         h = h + a
         h = h + _mlp(lp, layer_norm(h, lp["ln2_s"], lp["ln2_b"], eps))
+        return constrain(h, ("batch", None, None))
+
+    body = remat_wrap(body, remat)
+    for lp in unstack(params["encoder"]):
+        h = body(h, lp)
     return layer_norm(h, params["enc_final_s"], params["enc_final_b"], eps)
+
+
+def decode_train(params, enc_h: torch.Tensor, tokens: torch.Tensor,
+                 cfg: ModelConfig, *, remat=True, constrain=no_constrain
+                 ) -> torch.Tensor:
+    """The decoder over whole target sequences (B,S), causal self-attention
+    and cross-attention to ``enc_h``: final-norm hidden states (B,S,D)."""
+    B, S = tokens.shape
+    h = params["embed"]["embedding"][tokens]
+    h = h + sinusoid_positions(S, cfg.d_model, device=h.device).to(
+        h.dtype)[None]
+    h = constrain(h, ("batch", None, None))
+    positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
+
+    def body(h, lp):
+        kv = _cross_kv(lp["cross"], enc_h, cfg)
+        h, _ = _decoder_layer(lp, h, kv, cfg, positions)
+        return constrain(h, ("batch", None, None))
+
+    body = remat_wrap(body, remat)
+    for lp in unstack(params["decoder"]):
+        h = body(h, lp)
+    return _final(params, h, cfg)
+
+
+def hidden_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                   *, remat=True, constrain=no_constrain):
+    """The training forward: (frames, tokens) -> (decoder hidden states,
+    {})."""
+    enc_h = encode(params, batch["frames"], cfg, remat=remat,
+                   constrain=constrain)
+    return decode_train(params, enc_h, batch["tokens"], cfg, remat=remat,
+                        constrain=constrain), {}
 
 
 def _decoder_layer(lp, h, cross_kv, cfg: ModelConfig, positions,

@@ -441,3 +441,89 @@ def categorical_t(key: np.ndarray, logits: torch.Tensor) -> torch.Tensor:
 
 def bernoulli_t(key: np.ndarray, p: float, shape, device) -> torch.Tensor:
     return uniform_t(key, shape, device) < float(np.float32(p))
+
+
+# --------------------------------------------------------------------------
+# categorical bit for bit with the reference, drawn on a torch device
+# --------------------------------------------------------------------------
+
+#: candidates the device draw keeps per row for the exact re-ranking
+CATEGORICAL_TOPK = 4
+#: flat counters (whole rows) the device draw takes at once
+CATEGORICAL_CHUNK = 1 << 24
+#: float32 gap below a row's largest device value inside which an entry
+#: may still be the reference's winner. The device values differ from
+#: XLA's by the two logs' errors (each within 2 ulps of its own result,
+#: the inner one moving the outer by its relative error, < 3e-7) plus
+#: one rounding of the sum, |gumbel + logit| < 64: under 2e-5 an entry,
+#: so the winner lies within twice that of the device's largest; 1e-4
+#: leaves 2.5x of headroom. ``categorical_xla_t(with_err=True)`` reports
+#: the largest difference met.
+CATEGORICAL_MARGIN = 1e-4
+
+
+def gumbel_xla(u: np.ndarray) -> np.ndarray:
+    """``-log(-log(u))`` with XLA's float32 ``log``: the reference's
+    Gumbel values of the uniforms ``u`` bit for bit."""
+    return -xla_log(-xla_log(u))
+
+
+def _exact_values(key: np.ndarray, logits: np.ndarray, ctr: np.ndarray,
+                  col: np.ndarray) -> np.ndarray:
+    """The reference's ``gumbel + logits`` at flat counters ``ctr``
+    (columns ``col``), float32 on the host."""
+    y0, y1 = threefry2x32(key, np.zeros(ctr.size, np.uint32),
+                          ctr.astype(np.uint32).ravel())
+    u = _scale_unit(_to_unit_float(y0 ^ y1), TINY, 1.0)
+    return (gumbel_xla(u).reshape(ctr.shape) + logits[col]).astype(
+        np.float32)
+
+
+def categorical_xla_t(key: np.ndarray, logits: np.ndarray, shape, device,
+                      *, with_err: bool = False):
+    """``jax.random.categorical(key, logits, shape=shape)`` over the host
+    float32 ``logits`` (V,), bit for bit, as int64 draws on ``device``.
+
+    The uniforms come from ``counter_bits_t`` on the device over chunks
+    of about ``CATEGORICAL_CHUNK`` flat counters (whole rows of V), so no
+    (B, S, V) tensor exists. The device takes the gumbels in its own float32
+    ``log`` and keeps each row's ``CATEGORICAL_TOPK`` largest values;
+    the host re-ranks those with XLA's ``log`` (``gumbel_xla``) and takes
+    the first largest, as ``argmax`` does. A row whose K-th value lies
+    within ``CATEGORICAL_MARGIN`` of its largest is re-drawn whole on the
+    host. One device-to-host copy of the (rows, K) candidates per call.
+    With ``with_err`` also returns the largest |device - exact| value
+    among the candidates."""
+    logits = np.asarray(logits, np.float32)
+    V = logits.shape[-1]
+    R = int(np.prod(shape))
+    check_count(R * V)
+    K = min(CATEGORICAL_TOPK, V)
+    lg = torch.from_numpy(logits).to(device)
+    rows = max(1, CATEGORICAL_CHUNK // V)
+    vals, idx = [], []
+    for r0 in range(0, R, rows):
+        r1 = min(R, r0 + rows)
+        ctr = torch.arange(r0 * V, r1 * V, dtype=torch.int64, device=device)
+        u = unit_float_t(counter_bits_t(key, ctr)).clamp_min_(TINY)
+        del ctr
+        g = torch.log(u).neg_().log_().neg_().view(r1 - r0, V)
+        del u
+        tv, ti = torch.topk(g.add_(lg), K, dim=-1)
+        vals.append(tv)
+        idx.append(ti)
+    tv = torch.cat(vals).cpu().numpy()
+    ti = torch.cat(idx).cpu().numpy()
+    row = np.arange(R, dtype=np.int64)[:, None]
+    exact = _exact_values(key, logits, row * V + ti, ti)
+    best = exact.max(axis=1, keepdims=True)
+    draw = np.where(exact == best, ti, V).min(axis=1)
+    if K < V:
+        for r in np.nonzero(tv[:, K - 1] >= tv[:, 0] - CATEGORICAL_MARGIN)[0]:
+            cols = np.arange(V, dtype=np.int64)
+            draw[r] = np.argmax(_exact_values(key, logits, r * V + cols,
+                                              cols))
+    out = torch.from_numpy(draw.reshape(tuple(shape))).to(device)
+    if with_err:
+        return out, float(np.abs(tv.astype(np.float64) - exact).max())
+    return out

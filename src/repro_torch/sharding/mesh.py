@@ -1,6 +1,7 @@
-"""The serving die mesh: one logical STT-RAM slot pool over N dies.
+"""Device meshes: the serving die mesh (one logical STT-RAM slot pool over
+N dies) and the training meshes.
 
-The serving half of ``repro.sharding.mesh``. ``DieMesh`` partitions a
+The counterpart of ``repro.sharding.mesh``. ``DieMesh`` partitions a
 ``capacity``-slot pool along the SLOT axis: die ``d`` owns the
 contiguous slot block ``[d * slots_per_die, (d + 1) * slots_per_die)``.
 Every per-slot structure of the stack is slot-major (the pool cache's
@@ -19,18 +20,91 @@ per-die slot masks, admission score biases) that collapse to the
 
 On one H100 every die folds onto the one card: ``shard_slots`` is an
 identity, as the reference's placement is on a one-device host.
+
+``Mesh`` stands in for ``jax.sharding.Mesh``: an array of devices (or of
+placeholder ids, for the rules' arithmetic) with axis names. The
+training meshes (``make_production_mesh``, ``make_host_mesh``) are
+built from the CUDA devices present, or from the CPU when it is asked
+for; on one H100 they fold onto the card as (1, 1). The port runs no
+program over more than one device: ``rules.make_constrain`` refuses a
+mesh that has more than one.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 #: the named mesh axis the slot dimension is sharded over
 DIE_AXIS = "die"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """``devices``: an n-d numpy array of devices (or ids), one axis per
+    name in ``axis_names``."""
+    devices: np.ndarray
+    axis_names: Tuple[str, ...]
+
+    def __post_init__(self):
+        assert self.devices.ndim == len(self.axis_names), (
+            self.devices.shape, self.axis_names)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec (one entry per array axis: a mesh axis name, a tuple of
+    them, or None) over a mesh; ``device`` is where a one-device mesh
+    places the array."""
+    mesh: Mesh
+    spec: Tuple[Any, ...]
+
+    @property
+    def device(self) -> torch.device:
+        if self.mesh.size != 1:
+            raise NotImplementedError(
+                f"placement over a {self.mesh.shape} mesh: the port runs "
+                "on one device")
+        return torch.device(self.mesh.devices.flat[0])
+
+
+def device_grid(devices: Sequence, shape: Tuple[int, ...]) -> np.ndarray:
+    """An object array of ``shape`` holding ``devices`` in order."""
+    arr = np.empty(len(devices), dtype=object)
+    arr[:] = list(devices)
+    return arr.reshape(shape)
+
+
+def local_devices(device=None) -> List[torch.device]:
+    """The devices a mesh may use: every CUDA device present (the
+    default), or the one device asked for."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def _largest_divisor_leq(n: int, cap: int) -> int:
+    """Largest divisor of ``n`` that is <= ``cap`` (>= 1)."""
+    for k in range(min(n, cap), 0, -1):
+        if n % k == 0:
+            return k
+    return 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +171,22 @@ class DieMesh:
         return np.repeat(v, self.slots_per_die, axis=0)
 
     # --------------------------------------------------------- placement
+    def device_mesh(self, device=None) -> Mesh:
+        """1-D mesh over the ``die`` axis: its size is the largest divisor
+        of ``n_dies`` the device count admits (1 on one card), so the dies
+        fold evenly onto the devices."""
+        devices = local_devices(device)
+        k = _largest_divisor_leq(self.n_dies, len(devices))
+        return Mesh(device_grid(devices[:k], (k,)), (DIE_AXIS,))
+
+    def sharding_for(self, ndim: int, slot_axis: int, device=None
+                     ) -> NamedSharding:
+        """An array's ``slot_axis`` on the die axis, every other axis
+        replicated."""
+        spec = [None] * ndim
+        spec[slot_axis] = DIE_AXIS
+        return NamedSharding(self.device_mesh(device), tuple(spec))
+
     def shard_slots(self, tree: Any, slot_axis: int) -> Any:
         """Place a slot-major tree through the die mesh: an identity on
         one card (every die lives on it), so placement never perturbs
@@ -109,3 +199,33 @@ def uniform(values: Sequence) -> bool:
     operand then collapses to its pool-wide shape and an N-die run is
     the 1-die run."""
     return len(set(values)) <= 1
+
+
+# --------------------------------------------------------------------------
+# training meshes
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         shape: Optional[Tuple[int, ...]] = None,
+                         device=None) -> Mesh:
+    """The reference's pod mesh: (data=16, model=16), multi-pod (pod=2,
+    16, 16); ``shape`` overrides the intra-pod (data, model) split. Over
+    the devices ``local_devices(device)`` gives; asking for more than
+    exist raises."""
+    if shape is None:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+    elif multi_pod:
+        shape = (2,) + tuple(shape)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    devices = local_devices(device)
+    if len(devices) < n:
+        raise RuntimeError(f"need {n} devices for the production mesh, "
+                           f"found {len(devices)}")
+    return Mesh(device_grid(devices[:n], tuple(shape)), axes)
+
+
+def make_host_mesh(device=None) -> Mesh:
+    """The one-device (data, model) mesh of the reduced runs."""
+    return Mesh(device_grid(local_devices(device)[:1], (1, 1)),
+                ("data", "model"))

@@ -130,6 +130,9 @@ class Checkpointer:
     def __post_init__(self):
         Path(self.directory).mkdir(parents=True, exist_ok=True)
         self.device = resolve_device(self.device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the worker thread selects it by index
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[concurrent.futures.Future] = None
         self._last_digest: Dict[str, int] = {}  # leaf path -> content hash

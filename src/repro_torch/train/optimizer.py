@@ -4,6 +4,13 @@
 The state is a tree matching the parameters, so the checkpointer and the
 write plan treat it like any other: ``OptState(step, m, v)``, with
 ``step`` a 0-d int32 tensor and ``m``/``v`` float32 trees.
+
+``update`` runs each leaf a slice of ``UPDATE_SLICE`` elements at a
+time (every op is elementwise, so the values do not depend on the
+slicing), which bounds its float32 temporaries; ``donate=True`` writes
+the new values into the given parameters and moments, as the reference
+launcher's ``donate_argnums`` lets XLA do, so a step holds one copy of
+the training state.
 """
 from __future__ import annotations
 
@@ -60,9 +67,17 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for g in T.leaves(tree)))
 
 
-def update(cfg: AdamWConfig, grads: Any, state: OptState, params: Any
+#: elements of a leaf updated at once
+UPDATE_SLICE = 1 << 26
+
+
+def update(cfg: AdamWConfig, grads: Any, state: OptState, params: Any, *,
+           donate: bool = False
            ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
-    """One AdamW step: (new params, new state, {"grad_norm", "lr"})."""
+    """One AdamW step: (new params, new state, {"grad_norm", "lr"}). With
+    ``donate`` the new values overwrite ``params``' and ``state``'s
+    tensors (which the result then holds); the caller must not read the
+    old values afterwards."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -71,7 +86,7 @@ def update(cfg: AdamWConfig, grads: Any, state: OptState, params: Any
     b1c = 1.0 - torch.pow(cfg.b1, step_f)
     b2c = 1.0 - torch.pow(cfg.b2, step_f)
 
-    def upd(p, g, m, v):
+    def upd_slice(p, g, m, v):
         g = g.to(torch.float32) * scale
         m2 = cfg.b1 * m + (1 - cfg.b1) * g
         v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
@@ -81,6 +96,18 @@ def update(cfg: AdamWConfig, grads: Any, state: OptState, params: Any
                  + cfg.weight_decay * p.to(torch.float32))
         p2 = (p.to(torch.float32) - lr * delta).to(p.dtype)
         return p2, m2, v2
+
+    def upd(p, g, m, v):
+        outs = (p, m, v) if donate else tuple(
+            torch.empty_like(x, memory_format=torch.contiguous_format)
+            for x in (p, m, v))
+        flat_in = [x.reshape(-1) for x in (p, g, m, v)]
+        flat_out = [x.view(-1) for x in outs]
+        for a in range(0, max(1, p.numel()), UPDATE_SLICE):
+            new = upd_slice(*(x[a:a + UPDATE_SLICE] for x in flat_in))
+            for dst, val in zip(flat_out, new):
+                dst[a:a + UPDATE_SLICE].copy_(val)
+        return outs
 
     flat_p, tdef = T.flatten_with_def(params)
     out = [upd(p, g, m, v) for (_, p), g, m, v in zip(

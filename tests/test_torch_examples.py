@@ -1,4 +1,4 @@
-"""The port's serving examples (``repro_torch.examples``) on the CPU,
+"""The port's examples (``repro_torch.examples``) on the CPU,
 in-process as ``tests/test_examples.py`` runs the reference's, and
 ``image_store_psnr``'s stores against the reference's.
 
@@ -23,7 +23,8 @@ import torch
 import repro_torch
 from repro import memory as jmemory
 from repro.core import Priority as JPriority
-from repro_torch.examples import image_store_psnr, serve_approx_kv
+from repro_torch.examples import (image_store_psnr, serve_approx_kv,
+                                  train_lm_extent)
 
 ROOT = Path(__file__).resolve().parents[1]
 PSNR_RTOL = 1e-6
@@ -95,7 +96,7 @@ def test_serve_approx_kv_runs(capsys):
 def test_examples_target_cuda_without_a_device_flag():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
-    for mod in (image_store_psnr, serve_approx_kv):
+    for mod in (image_store_psnr, serve_approx_kv, train_lm_extent):
         with pytest.raises(RuntimeError, match="CUDA"):
             mod.main([])
 

@@ -57,6 +57,41 @@ def test_no_source_imports_jax_or_repro(path):
     assert not roots & {"jax", "jaxlib", "repro"}, roots
 
 
+#: the training loop's modules
+TRAINING_MODULES = (
+    "repro_torch.train.train_step", "repro_torch.train.data",
+    "repro_torch.train.accumulate", "repro_torch.train.fault_tolerance",
+    "repro_torch.sharding.rules", "repro_torch.launch.train",
+    "repro_torch.benchmarks.fig13_access",
+    "repro_torch.examples.train_lm_extent")
+
+
+@pytest.mark.parametrize("name", TRAINING_MODULES)
+def test_training_modules_stand_alone(name):
+    """Each is one of the modules the blocked-import walk imports, and
+    its source imports neither jax nor repro."""
+    path = ROOT / "src" / (name.replace(".", "/") + ".py")
+    assert path.is_file(), path
+    assert not set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
+    import pkgutil
+    import repro_torch
+    assert name in {m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch.")}
+
+
+def test_trainer_without_device_targets_cuda():
+    """The training launcher and the data pipeline, given no device,
+    target CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from repro_torch.launch import train
+    from repro_torch.train import data
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        data.make_batch(data.DataConfig(16, 4, 2), 0)
+
+
 def test_engine_without_device_targets_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")

@@ -162,10 +162,10 @@ def test_telemetry_arms_match_the_reference(jparams, monkeypatch):  # noqa
 # ---------------------------------------------------------------------------
 
 def test_runner_registers_the_reference_modules():
-    """Fourteen modules: the reference runner's less fig13_access
-    (training); the quick profile is the reference's."""
-    assert set(runner.BENCHES) == set(jrun.BENCHES) - {"fig13_access"}
-    assert len(runner.BENCHES) == 14
+    """Fifteen modules: the reference runner's, in its order; the quick
+    profile is the reference's."""
+    assert list(runner.BENCHES) == list(jrun.BENCHES)
+    assert len(runner.BENCHES) == 15
     assert set(runner.PAPER) | set(runner.SERVING) == set(runner.BENCHES)
     quick = runner.selected(quick=True)
     assert quick == list(jrun.QUICK_BENCHES)
