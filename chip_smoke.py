@@ -315,6 +315,21 @@ each printed as one JSON line:
                     then repro_torch.examples.train_lm_extent --steps 60
                     on the card (saves, the restore at step 30, its
                     "must learn" check).
+ 33. tools        — the port's tools on the card: repro_torch.launch.
+                    dryrun.smoke_backends("cuda") (a bf16 (33,) and an
+                    int8 (129,) write through every memory backend; the
+                    cuda backend's stored words and flips bit-exact
+                    against lanes_ref, its extent_write launches counted
+                    on the ``tools`` path); the roofline of the train
+                    phase's own cell (qwen2.5-3b, seq 4096, batch 2, one
+                    card: repro_torch.launch.roofline's cell_flops and
+                    cell_bytes over launch/hw.py's H100 rates) against the
+                    train phase's measured step: model FLOPs / (peak x
+                    step) and bound step / measured step; and the dry run
+                    of qwen2.5-3b x train_4k on the reference's (16, 16)
+                    mesh on the meta device (its FLOPs beside the
+                    analytic count, per-device argument bytes, trace
+                    seconds).
 
 They run in the order build, kernel, scrub_kernel,
 local_attention_kernel, kv_quant_kernel, rng_device, reduced,
@@ -322,12 +337,12 @@ reduced_hybrid, reduced_moe, reduced_families, full, retention,
 telemetry, shards, oracle, prefix, soft_errors, wear, sampling,
 workload, hybrid, moe, ssm, vlm, audio (each full-width model loads
 after the previous one is freed), paper, serving_bench,
-checkpoint_reduced, checkpoint, train_reduced, train, train_launcher;
-then the script's seconds (``done``), nvidia-smi's line again and the
+checkpoint_reduced, checkpoint, train_reduced, train, train_launcher,
+tools; then the script's seconds (``done``), nvidia-smi's line again and the
 kernels line, where every entry adds its launches on each path
 (``launches_by_path``: ``serving_bench``, ``checkpoint_reduced``,
-``checkpoint``, ``train_reduced``, ``train`` and ``train_launcher`` in
-all four), extent_write the MoE and
+``checkpoint``, ``train_reduced``, ``train``, ``train_launcher`` and
+``tools`` in all four), extent_write the MoE and
 vlm admission writes and the audio prefill's cross K/V and decode
 column (``at.admission_moe``, ``at.admission_vlm``,
 ``at.prefill_cross_audio``, ``at.decode_column_audio``, and
@@ -4506,7 +4521,7 @@ def phase_train(device):
                                    "loss_accum": accum, "rel": acc_rel,
                                    "rtol": TRAIN_ACCUM_RTOL},
           "launches": launches, "ok": True})
-    return launches
+    return launches, step_ms
 
 
 def phase_train_launcher(device):
@@ -4591,6 +4606,89 @@ def phase_train_launcher(device):
                       "lines": ex, "launches": ex_launches},
           "ok": True})
     return {k: launches[k] + ex_launches[k] for k in launches}
+
+
+#: the dry run's cell (of the reference's (16, 16) table) and where its
+#: record is written (removed after)
+TOOLS_DRYRUN_CELL = ("qwen2.5-3b", "train_4k")
+TOOLS_DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+
+
+def phase_tools(device, train_step_ms: float):
+    """The port's tools on the card. (1) dryrun.smoke_backends("cuda"):
+    every memory backend writes a bf16 (33,) and an int8 (129,) leaf; the
+    cuda backend's stored words and flips must equal lanes_ref's, and it
+    must launch extent_write once a case. (2) The roofline of the train
+    phase's cell on one card (launch/roofline.py's cell_flops and
+    cell_bytes over launch/hw.py's rates) against its measured step.
+    (3) dryrun.run_cell of qwen2.5-3b x train_4k on the (16, 16) mesh on
+    the meta device."""
+    import io
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import hw as H
+    from repro_torch.launch import roofline
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        smoke = dryrun.smoke_backends(device)
+    torch.cuda.synchronize()
+    smoke_s = time.perf_counter() - t0
+    launches = read_launches()
+    cases = {}
+    for label, res in smoke.items():
+        cuda, twin = res["cuda"], res["lanes_ref"]
+        if not (torch.equal(cuda["stored"], twin["stored"])
+                and cuda["flips"] == twin["flips"]
+                and cuda["errors"] == twin["errors"]):
+            raise AssertionError(f"tools: cuda against lanes_ref ({label})")
+        cases[label] = {n: {k: v for k, v in r.items() if k != "stored"}
+                        for n, r in res.items()}
+    if launches != {**{k: 0 for k in KERNELS},
+                    "extent_write": len(smoke)}:
+        raise AssertionError(f"tools: smoke launches {launches}")
+    # the train phase's cell on one card
+    cfg = get_config("qwen2.5-3b")
+    cell = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    fl = roofline.cell_flops(cfg, cell)
+    by = roofline.cell_bytes(cfg, cell)
+    compute_s = fl["total"] / H.PEAK_FLOPS_BF16
+    memory_s = by["total"] / H.HBM_BW
+    bound_s = max(compute_s, memory_s)
+    step_s = train_step_ms / 1e3
+    # the reference's (16, 16) cell on meta
+    shutil.rmtree(TOOLS_DRYRUN_DIR, ignore_errors=True)
+    rec = dryrun.run_cell(*TOOLS_DRYRUN_CELL, False, TOOLS_DRYRUN_DIR)
+    shutil.rmtree(TOOLS_DRYRUN_DIR, ignore_errors=True)
+    if not (rec["cost"]["flops"] > 0 and rec["n_devices"] == 256):
+        raise AssertionError(f"tools: dry run {rec}")
+    emit({"phase": "tools",
+          "smoke_backends": {"cases": cases, "lines":
+                             buf.getvalue().splitlines(),
+                             "seconds": smoke_s,
+                             "cuda_equals_lanes_ref": True},
+          "roofline_train": {
+              "arch": cfg.name, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+              "chips": 1, "cell_flops": fl, "cell_bytes": by,
+              "compute_s": compute_s, "memory_s": memory_s,
+              "bound_step_s": bound_s,
+              "bottleneck": "compute" if compute_s >= memory_s
+              else "memory",
+              "measured_step_s": step_s,
+              "model_flops_over_peak_x_step":
+                  fl["model_flops"] / (H.PEAK_FLOPS_BF16 * step_s),
+              "bound_over_measured": bound_s / step_s,
+              "rates": {"PEAK_FLOPS_BF16": H.PEAK_FLOPS_BF16,
+                        "HBM_BW": H.HBM_BW}},
+          "dryrun": {k: rec[k] for k in (
+              "arch", "shape", "mesh", "n_devices", "device", "trace_s",
+              "memory", "cost", "collectives")},
+          "launches": launches, "ok": True})
+    return launches
 
 
 def main() -> int:
@@ -4713,6 +4811,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train_launches[phase.__name__[len("phase_"):]] = phase(device)
+    train_launches["train"], train_step_ms = train_launches["train"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches["tools"] = phase_tools(device, train_step_ms)
     for e in entries:
         e["launches_by_path"].update(
             {k: v[e["name"]] for k, v in train_launches.items()})

@@ -27,7 +27,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 from repro_torch.kernels.extent_write.ref import (  # noqa: F401
-    K_BIT, K_ELEM, hash_u32)
+    K_BIT, K_ELEM, M32, hash_u32, mul32)
 
 
 class Stream(NamedTuple):

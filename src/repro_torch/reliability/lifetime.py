@@ -66,12 +66,12 @@ from repro_torch import tree as T
 from repro_torch.core import mtj, wer
 from repro_torch.core.priority import (Priority, bitplane_priorities,
                                        bits_of, int_type)
-from repro_torch.kernels.extent_write.ref import M32, mul32
 from repro_torch.memory import address as A
 from repro_torch.memory import rng_streams
 from repro_torch.memory.plan import BATCH_AXIS, WritePlan
 from repro_torch.memory.stats import popcount, popcount_rows
-from repro_torch.memory.rng_streams import K_BIT, K_ELEM, hash_u32
+from repro_torch.memory.rng_streams import (K_BIT, K_ELEM, M32, hash_u32,
+                                           mul32)
 
 #: per-priority Delta derate: the approximation floor sets the decay clock.
 RETENTION_DERATE = {

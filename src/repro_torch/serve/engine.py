@@ -396,6 +396,7 @@ class ServingEngine:
             self.meter.add_stream("kv_decode", acc.host_dict())
         report = self.meter.summary()
         if life is not None:
+            # repro_torch: allow(no-host-sync-in-burst): once per generate
             flips, decayed = torch.stack(
                 [life.retention_flips, life.decayed_bits()]).tolist()
             report["retention"] = {
@@ -409,6 +410,7 @@ class ServingEngine:
     def wear_report(self, life) -> Dict[str, Any]:
         """The row-group wear summary of ``life`` (one host read)."""
         worn = self.life_plan.worn_groups(life)
+        # repro_torch: allow(no-host-sync-in-burst): once per report
         top, n_worn = torch.stack([
             life.row_wear().max(),
             torch.zeros_like(life.step) if worn is None

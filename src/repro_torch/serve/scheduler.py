@@ -310,6 +310,7 @@ class ContinuousScheduler:
         sigs: List[Any] = []
         for r in group:
             # the one host read of the prompt, at admission
+            # repro_torch: allow(no-host-sync-in-burst): once per admission
             host_prompt = {k: v.cpu().numpy() for k, v in r.prompt.items()}
             s = self.prefix.signatures(host_prompt)
             sigs.append(s)
@@ -678,6 +679,7 @@ class ContinuousScheduler:
         wear (int64) and the (B,) slot placement scores (float32), as
         host arrays, in one transfer (float64 holds both exactly)."""
         wear = self.life.row_wear()
+        # repro_torch: allow(no-host-sync-in-burst): once per wear check
         flat = torch.cat([
             wear.reshape(-1).to(torch.float64),
             self.eng.life_plan.slot_scores(
@@ -712,6 +714,7 @@ class ContinuousScheduler:
         if self.wear_policy is not None:
             # restored wear is not wear gained this run: without the
             # rebase the first check would fire an unearned rotation
+            # repro_torch: allow(no-host-sync-in-burst): one-off restore read
             self.wear_policy.rebase(self.life.row_wear().cpu().numpy())
 
     def _materialize_tokens(self, rid: int,
@@ -720,6 +723,8 @@ class ContinuousScheduler:
         for arr, col, take in self._tokens[rid]:
             a = memo.get(id(arr))
             if a is None:
+                # each burst's token block crosses once (memo)
+                # repro_torch: allow(no-host-sync-in-burst): once per event
                 a = memo[id(arr)] = arr.cpu().numpy()
             if a.ndim == 1:
                 out.append(int(a[col]))
@@ -735,6 +740,7 @@ class ContinuousScheduler:
         if not done:
             return 0
         keys = list(self.pool.slot_acc)
+        # repro_torch: allow(no-host-sync-in-burst): once per event
         rows = torch.stack([self.pool.slot_acc[k] for k in keys]).cpu()
         slot_host = dict(zip(keys, rows.numpy()))
         memo: Dict[int, np.ndarray] = {}
@@ -949,6 +955,7 @@ class ContinuousScheduler:
         if self.life is not None:
             # the lifetime ledger: write energy plus the scrub energy spent
             # defending it, and the decay that slipped through
+            # repro_torch: allow(no-host-sync-in-burst): once per run
             flips, decayed = torch.stack([self.life.retention_flips,
                                           self.life.decayed_bits()]).tolist()
             write_pj = pre_host["energy_pj"] + dec_host["energy_pj"]
@@ -999,6 +1006,7 @@ class ContinuousScheduler:
         wear = self.life.row_wear() if eng.wear else None
         if wear is not None:
             parts.append(wear.reshape(-1).to(torch.float64))
+        # repro_torch: allow(no-host-sync-in-burst): once per run
         flat = torch.cat(parts).cpu().numpy()
         cap = m.capacity
         energy, flips, errors = (
