@@ -6,9 +6,21 @@ a plain C interface at first use (``kernels.build``) and bound with
 ``ctypes``; the C function returns ``cudaGetLastError()`` and the
 wrapper raises if that is not 0.
 
-Memory-bound: 16 bytes per lane (read stored and mask, write scrubbed
-and residual) against the card's 3.35 TB/s. Decay masks are sparse, so
-almost every lane takes the kernel's mask == 0 early-out.
+Bound by 16 bytes per lane (read stored and mask, write scrubbed and
+residual) against the card's 3.35 TB/s where decay masks are sparse, as
+in serving: a warp trip whose lanes hold no decayed bit copies them, one
+with a few draws them bit by bit. Under a dense mask (a checkpoint
+restore's) the draws bound: the warp walks the set planes of its masks'
+OR and draws every lane at each. ``scrub_grid`` (C) picks the grid and
+the kernel's vectors a thread from the lane count.
+
+The kernel writes per-block partials, a (grid, 65) int32 tensor: each
+row a block's 0->1 re-writes of planes 0..31, its 1->0 re-writes of
+planes 0..31 and its failed re-writes. The wrapper turns them into the
+stats with the twin's own ``ref.stats_from_partials`` (int64 sums over
+the blocks, then the float64 per-plane energy rounded once to float32),
+so on one device a scrub's energy equals the twin's bit for bit and a
+call is deterministic.
 
 ``scrub_cuda`` (the ``ScrubCuda`` instance) is what the ``cuda``
 backend's ``leaf_scrub`` calls. For CPU tensors it runs the plain twin
@@ -44,13 +56,18 @@ class ScrubCuda:
             fn = lib.scrub_launch
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int64, ctypes.c_uint32,
+                           ctypes.c_int64, ctypes.c_int, ctypes.c_uint32,
                            ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_void_p]
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            self._threads = lib.scrub_threads()
+            lib.scrub_grid.argtypes = [ctypes.c_int64, ctypes.c_int]
+            lib.scrub_grid.restype = ctypes.c_int
+            self._grid = lib.scrub_grid
+            lib.scrub_vecs.argtypes = [ctypes.c_int64]
+            lib.scrub_vecs.restype = ctypes.c_int
+            self._vecs = lib.scrub_vecs
+            self._sparse_bits = lib.scrub_sparse_bits()
+            self._parts = lib.scrub_parts()
             self._fn = fn
         return self._fn
 
@@ -83,25 +100,27 @@ class ScrubCuda:
         if n >= 2 ** 32:
             raise ValueError("scrub: lane index must fit 32 bits")
         fn = self._load()
-        grid = max(1, min(B.MAX_GRID, -(-n // self._threads)))
+        # the lanes before stored's first 16-byte boundary: the kernel's
+        # vectors follow that grid
+        lead = (stored_u.data_ptr() // 4) % 4
+        grid = self._grid(n, lead)
+        if grid <= 0:
+            raise RuntimeError("scrub: the device's resident blocks could "
+                               "not be queried")
         scrubbed = torch.empty_like(stored_u)
         residual = torch.empty_like(mask_u)
-        part_e = torch.empty((grid,), dtype=torch.float32, device=dev)
-        part_c = torch.empty((3, grid), dtype=torch.int32, device=dev)
+        parts = torch.empty((grid, self._parts), dtype=torch.int32,
+                            device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(stored_u.data_ptr(), mask_u.data_ptr(), scrubbed.data_ptr(),
-                residual.data_ptr(), n, int(seed) & 0xFFFFFFFF,
-                thr01.data_ptr(), thr10.data_ptr(), e01.data_ptr(),
-                e10.data_ptr(), part_e.data_ptr(), part_c.data_ptr(), grid,
+                residual.data_ptr(), n, lead, int(seed) & 0xFFFFFFFF,
+                thr01.data_ptr(), thr10.data_ptr(), parts.data_ptr(), grid,
                 stream)
         if rc != 0:
             raise RuntimeError(f"scrub kernel launch failed: CUDA error "
                                f"{rc}")
         self.launches += 1
-        counts = part_c.to(torch.int64).sum(dim=1)
-        return scrubbed, residual, {
-            "energy_pj": part_e.sum(), "flips01": counts[0],
-            "flips10": counts[1], "errors": counts[2]}
+        return scrubbed, residual, R.stats_from_partials(parts, e01, e10)
 
 
 scrub_cuda = ScrubCuda()

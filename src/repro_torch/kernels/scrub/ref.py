@@ -14,7 +14,10 @@ Written in the style of ``kernels/extent_write/ref.py``: lanes are int32
 tensors holding uint32 bit patterns, the hash runs in int64 masked to 32
 bits, the planes are walked one at a time, and the energy is the float64
 sum over planes of (integer count x plane energy), rounded once to
-float32.
+float32 (``plane_energy``). ``stats_from_partials`` turns per-plane
+counts into the stats dict; the twin and the CUDA wrapper both call it,
+the wrapper on the kernel's per-block partials, so on one device their
+energies are equal bit for bit.
 """
 from __future__ import annotations
 
@@ -24,6 +27,28 @@ import torch
 
 from repro_torch.kernels.extent_write.ref import (K_BIT, K_ELEM, M32, as_i32,
                                                   as_u32, hash_u32, mul32)
+
+
+def plane_energy(counts: torch.Tensor, prices: torch.Tensor
+                 ) -> torch.Tensor:
+    """Energy (pJ) of per-plane integer re-write counts at per-plane
+    prices: the float64 sum of count x price, rounded once to float32."""
+    return (counts.double() * prices.double()).sum().to(torch.float32)
+
+
+def stats_from_partials(parts: torch.Tensor, e01: torch.Tensor,
+                        e10: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``parts``: (blocks, 2 P + 1) integer per-block partials, each row
+    the block's 0->1 re-writes of planes 0..P-1, its 1->0 re-writes of
+    planes 0..P-1 and its failed re-writes (P = ``e01.shape[0]``).
+    Summed over blocks in int64, then priced by ``plane_energy``.
+    Returns {energy_pj, flips01, flips10, errors}."""
+    p = e01.shape[0]
+    tot = parts.sum(0, dtype=torch.int64)
+    counts = tot[:2 * p]
+    flips = counts.view(2, p).sum(1)
+    return {"energy_pj": plane_energy(counts, torch.cat([e01, e10])),
+            "flips01": flips[0], "flips10": flips[1], "errors": tot[2 * p]}
 
 
 def scrub_ref(stored_u: torch.Tensor, mask_u: torch.Tensor, seed: int,
@@ -56,9 +81,6 @@ def scrub_ref(stored_u: torch.Tensor, mask_u: torch.Tensor, seed: int,
         f01[b] = to_ap.sum()
         f10[b] = (rewrite & ~to_ap).sum()
         err = err + fail.sum()
-    scrubbed = as_i32(corrected ^ fail_mask)
-    energy = (f01.double() * e01.double()
-              + f10.double() * e10.double()).sum().to(torch.float32)
-    return scrubbed, as_i32(fail_mask), {
-        "energy_pj": energy, "flips01": f01.sum(), "flips10": f10.sum(),
-        "errors": err}
+    stats = stats_from_partials(torch.cat([f01, f10, err[None]])[None], e01,
+                                e10)
+    return as_i32(corrected ^ fail_mask), as_i32(fail_mask), stats
