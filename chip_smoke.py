@@ -217,15 +217,16 @@ each printed as one JSON line:
                     continuous on a synthetic stream the same two ways
                     (tokens, flips, errors and lifetime counters
                     identical, energies rtol 1e-5); whisper generate;
- 23. ssm          — mamba2-2.7b at full published width and depth (64
-                    layers, bf16): the ``full`` traffic with 1024-token
-                    prompts (4 chunks of the scan), twice identical, no
-                    kernel launched, its state bytes a slot;
- 24. vlm          — llava-next-mistral-7b at full published width and
-                    depth: the ``full`` traffic with 256 text tokens
-                    behind 2880 image columns (synthetic_requests'
-                    modal_seed draws), twice identical; one admission
-                    write (32, 1, 3168, 8, 128) bf16 against its twin,
+ 23. ssm          — mamba2-2.7b at full published width, its depth cut to
+                    SSM_LAYERS = 8 of 64 (bf16): the ``full`` traffic
+                    with 1024-token prompts (4 chunks of the scan), twice
+                    identical, no kernel launched, its state bytes a slot;
+ 24. vlm          — llava-next-mistral-7b at full published width, its
+                    depth cut to VLM_LAYERS = 8 of 32: the ``full``
+                    traffic with 256 text tokens behind 2880 image
+                    columns (synthetic_requests' modal_seed draws), twice
+                    identical; one admission write (8, 1, 3168, 8, 128)
+                    bf16 against its twin,
                     its energy within the float32 summation bound
                     (``energy_rtol``), and timed;
  25. audio        — whisper-large-v3 at full published width and depth:
@@ -235,6 +236,31 @@ each printed as one JSON line:
                     decode columns flip nothing; the prefill's cross K/V
                     write (32, 4, 1500, 20, 64) bf16 = 122.9 M lanes and
                     a decode column against the twin and timed;
+ 25a. dense_windows
+                  — gemma2-9b, mistral-nemo-12b and h2o-danube-1.8b, each
+                    at full published width and depth (bf16, random
+                    weights from seed 0), loaded alone: the ``full``
+                    traffic with 6144-token prompts (past the 4096-key
+                    window; max_seq 6176), twice identical, one
+                    extent_write launch per cache leaf (K and V of each
+                    window capacity: gemma2's 4096-row rings and 6176-row
+                    global leaves) per admission group and decode step;
+                    an admission write of each capacity's K leaf (the
+                    wrapped ring, the global leaf) against its twin,
+                    bit-exact, its energy within ``energy_rtol``, timed;
+                    for the windowed two, the decode after the ring
+                    wrapped against a prefill over the same tokens (the
+                    first WRAP_LAYERS layers' written K/V within
+                    WRAP_CACHE_RTOL, gemma2-9b's logits within
+                    WRAP_LOGITS_RTOL; every layer and the logits printed
+                    beside a prefill with the windows lifted); tokens/s,
+                    decode ms per step at batch 4, peak memory;
+ 25b. scout       — llama4-scout-17b-a16e at full published width (16
+                    experts top-1, d_ff 8192, 40 heads over 8 KV heads of
+                    128, vocab 202048), its depth cut to SCOUT_LAYERS = 8
+                    of 48 (37.4 GB of weights), as ``moe``: the plain
+                    per-token loop, the ``full`` traffic twice with its
+                    prefill drops counted, the admission write timed;
  26. paper        — the paper's seven results (Table 1, Figs. 2, 6, 12, 13,
                     14 and 15/16) through repro_torch.benchmarks.run's
                     functions on the card at the paper's sizes (Fig. 2 at
@@ -297,6 +323,8 @@ each printed as one JSON line:
  30. train_reduced — one make_train_step step of every family's reduced
                     config (qwen2.5-3b, dbrx-132b, recurrentgemma-2b,
                     mamba2-2.7b, llava-next-mistral-7b, whisper-large-v3)
+                    and of the three dense windowed configurations
+                    (gemma2-9b, mistral-nemo-12b, h2o-danube-1.8b)
                     on the card and on the CPU from the same parameters
                     and batch, TF32 off: loss and gradient norm within
                     TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL, the parameters
@@ -343,16 +371,20 @@ They run in the order build, kernel, scrub_kernel,
 local_attention_kernel, kv_quant_kernel, rng_device, reduced,
 reduced_hybrid, reduced_moe, reduced_families, full, retention,
 telemetry, shards, oracle, prefix, soft_errors, wear, sampling,
-workload, hybrid, moe, ssm, vlm, audio (each full-width model loads
-after the previous one is freed), paper, serving_bench,
+workload, hybrid, moe, ssm, vlm, audio, dense_windows (three models),
+scout (each full-width model loads after the previous one is freed),
+paper, serving_bench,
 checkpoint_reduced, checkpoint, train_reduced, train, train_launcher,
 tools; then the script's seconds (``done``), nvidia-smi's line again and the
 kernels line, where every entry adds its launches on each path
 (``launches_by_path``: ``serving_bench``, ``checkpoint_reduced``,
 ``checkpoint``, ``train_reduced``, ``train``, ``train_launcher`` and
-``tools`` in all four), extent_write the MoE and
+``tools`` in all four; extent_write's also each dense windowed
+model's and ``scout``), extent_write the MoE and
 vlm admission writes and the audio prefill's cross K/V and decode
 column (``at.admission_moe``, ``at.admission_vlm``,
+``at.admission_<arch>_<local|global>`` of the dense windowed models,
+``at.admission_scout``,
 ``at.prefill_cross_audio``, ``at.decode_column_audio``, and
 ``at.kernel_bench``: the write at kernel_bench's 8 MiB, and
 ``at.checkpoint_embed_moment``: the write of the checkpoint's 311.2 M-lane
@@ -409,7 +441,13 @@ def hw():
     return H
 
 
+#: the script's start: each phase line's ``at_s`` counts from it
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -944,15 +982,17 @@ def serve_full(eng, prompt_len, scrub_policy=None, shared=0,
     return rep, sch, wall
 
 
-def check_write_launches(launches, rep) -> None:
-    """Two extent_write launches (one per K and V leaf) per admission
-    group and per decode step, and none elsewhere."""
+def check_write_launches(launches, rep, leaves: int = 2) -> None:
+    """One extent_write launch per cache leaf (``leaves``: a K and a V
+    leaf for each distinct window capacity) per admission group and per
+    decode step, and none elsewhere."""
     groups = rep["pool"]["admission_groups"]
-    expected = 2 * (groups + rep["decode_steps"])
+    expected = leaves * (groups + rep["decode_steps"])
     if launches["extent_write"] != expected or expected <= 0:
         raise AssertionError(f"extent_write launches {launches} != "
-                             f"2 x (admission groups {groups} + decode "
-                             f"steps {rep['decode_steps']}) = {expected}")
+                             f"{leaves} x (admission groups {groups} + "
+                             f"decode steps {rep['decode_steps']}) = "
+                             f"{expected}")
 
 
 def phase_full(device):
@@ -2280,6 +2320,9 @@ def phase_hybrid(device):
 #: dbrx-132b's depth on the card: 6 of its 40 layers (the full-width
 #: weights of 6 layers are 41.6 GB of bf16; 40 would not fit one card)
 MOE_LAYERS = 6
+#: llama4-scout-17b-a16e's depth on one card: 8 of its 48 layers (4.15 GB
+#: of bf16 weights a layer, 4.14 GB of embedding and head; 37.4 GB in all)
+SCOUT_LAYERS = 8
 #: the workload phase's presets: 16 events from root seed 7
 WORKLOAD_EVENTS, WORKLOAD_SEED = 16, 7
 #: sha256 of each preset's trace (``workload.trace.dumps``) for
@@ -2404,13 +2447,15 @@ def moe_dense_check(eng, device) -> float:
     return err
 
 
-def phase_moe(device):
-    """dbrx-132b at full published width (d_model 6144, 48 heads over 8 KV
-    heads of 128, 16 experts top-4, d_ff 10752, vocab 100352, bf16,
-    random weights from seed 0, capacity factor 1.25), its depth cut to
-    MOE_LAYERS: the ``full`` traffic twice, identical in tokens, counts
-    and launches; the prefills' dropped assignments counted. Returns the
-    extent_write launches of one run and the admission write's timing."""
+def moe_serving(device, arch: str, layers: int, phase: str):
+    """``arch`` at full published width, its depth cut to ``layers``
+    (bf16, random weights from seed 0): layer 0's MoE FFN against the
+    plain per-token loop, the ms per decode step at batch 4, the
+    ``full`` traffic twice, identical in tokens, counts, launches and
+    dropped assignments (counted at the prefills; a decode step drops
+    none), and the admission write at this cache's shape against the
+    twin, timed; one ``phase`` line. Returns the extent_write launches
+    of one run and the admission write's timing."""
     import dataclasses
     import torch
     from repro_torch import tree as T
@@ -2419,7 +2464,8 @@ def phase_moe(device):
     from repro_torch.kernels.extent_write import ops
     from repro_torch.models import get_model, moe
     from repro_torch.serve import ServeConfig, ServingEngine
-    cfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=MOE_LAYERS)
+    published = get_config(arch)
+    cfg = dataclasses.replace(published, num_layers=layers)
     t0 = time.perf_counter()
     params = get_model(cfg).init(0, device)
     torch.cuda.synchronize()
@@ -2437,36 +2483,34 @@ def phase_moe(device):
             rep, sch, wall = serve_full(eng, PROMPT_LEN)
             launches = read_launches()
         check_write_launches(launches, rep)
-        if any(launches[k] for k in ("scrub", "local_attention",
-                                     "kv_quant")):
-            raise AssertionError(f"moe path launched another kernel: "
-                                 f"{launches}")
+        no_launch_but(launches, "extent_write", phase)
         drops = {k: [int(d) for d in torch.stack(v).tolist()]
                  for k, v in seen.items()}
-        runs.append((rep, sch, wall, launches, drops))
-    (rep, sch, wall, launches, drops), again = runs[0], runs[1]
-    if not (same_run(again[0], rep) and again[3] == launches
-            and again[4] == drops):
-        raise AssertionError("moe: two runs of one traffic differ")
+        runs.append((rep, wall, launches, drops))
+    (rep, wall, launches, drops), again = runs
+    if not (same_run(again[0], rep) and again[2] == launches
+            and again[3] == drops):
+        raise AssertionError(f"{phase}: two runs of one traffic differ")
     if any(drops["decode"]):
-        raise AssertionError("moe: a decode step dropped an assignment")
+        raise AssertionError(f"{phase}: a decode step dropped an "
+                             f"assignment")
     groups = rep["pool"]["admission_groups"]
-    if len(drops["prefill"]) != MOE_LAYERS * groups:
-        raise AssertionError(f"moe: {len(drops['prefill'])} prefill MoE "
-                             f"calls for {groups} admission groups")
+    if len(drops["prefill"]) != layers * groups:
+        raise AssertionError(f"{phase}: {len(drops['prefill'])} prefill "
+                             f"MoE calls for {groups} admission groups")
     peak = torch.cuda.max_memory_allocated()
-    # the admission write at this cache's shape (6, 1, 288, 8, 128) bf16
+    # the admission write at this cache's shape (layers, 1, 288, 8, 128)
     vecs = eng.vectors_for_floor(Priority.LOW)
     news = admission_rows(eng, 11)
     stale = T.leaves(sch.pool.extract_rows([0]))
     adm = time_writes(
-        f"moe admission {tuple(news[0].shape)} over stale rows",
+        f"{phase} admission {tuple(news[0].shape)} over stale rows",
         [(ops.to_lanes(o), ops.to_lanes(n),
           (v.thr01, v.thr10, v.le01, v.le10))
          for o, n, v in zip(stale, news, vecs) if v is not None])
     tot = rep["total"]
-    emit({"phase": "moe", "arch": cfg.name, "layers": MOE_LAYERS,
-          "layers_published": get_config("dbrx-132b").num_layers,
+    emit({"phase": phase, "arch": cfg.name, "layers": layers,
+          "layers_published": published.num_layers,
           "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
           "capacity_factor": cfg.capacity_factor,
           "params": eng.api.num_params(),
@@ -2475,7 +2519,7 @@ def phase_moe(device):
           "requests": N_REQ, "capacity": CAPACITY, "prompt_len": PROMPT_LEN,
           "new_tokens": NEW_TOKENS, "clock_steps": rep["clock_steps"],
           "decode_steps": rep["decode_steps"], "bursts": rep["bursts"],
-          "admission_groups": groups, "wall_s": [wall, again[2]],
+          "admission_groups": groups, "wall_s": [wall, again[1]],
           "tokens_per_s": N_REQ * NEW_TOKENS / wall,
           "decode_ms_per_step_b4": step_ms, "peak_mem_bytes": peak,
           "expert_capacity_prompt": moe.capacity_for(cfg, PROMPT_LEN),
@@ -2491,8 +2535,29 @@ def phase_moe(device):
     return launches["extent_write"], adm
 
 
+def phase_moe(device):
+    """dbrx-132b at full published width (d_model 6144, 48 heads over 8 KV
+    heads of 128, 16 experts top-4, d_ff 10752, vocab 100352, capacity
+    factor 1.25), MOE_LAYERS of its 40 layers, through ``moe_serving``."""
+    return moe_serving(device, "dbrx-132b", MOE_LAYERS, "moe")
+
+
+def phase_scout(device):
+    """llama4-scout-17b-a16e at full published width (d_model 5120, 40
+    heads over 8 KV heads of 128, 16 experts top-1, d_ff 8192, vocab
+    202048, capacity factor 1.25), SCOUT_LAYERS of its 48 layers, through
+    ``moe_serving``: top-1 routing at full width."""
+    return moe_serving(device, "llama4-scout-17b-a16e", SCOUT_LAYERS,
+                       "scout")
+
+
 #: the ssm phase's prompts: four chunks of mamba2's 256-token scan
 PROMPT_LEN_SSM = 1024
+#: the depths of the ssm and vlm phases: 8 of mamba2-2.7b's 64 layers and
+#: of llava-next-mistral-7b's 32, so that the script's run time leaves
+#: room for the dense windowed models at full depth (both steps are
+#: host-bound and their layers repeat)
+SSM_LAYERS, VLM_LAYERS = 8, 8
 #: the vlm phase's text prompts, each behind its 2880 image columns
 PROMPT_LEN_VLM = 256
 #: the audio phase: whisper's 30-second window of frames (the reference's
@@ -2652,13 +2717,17 @@ def phase_reduced_families(device):
     return counts
 
 
-def load_full(arch, device):
-    """The published config at full width and depth, random bf16 weights
-    from seed 0: (cfg, params, init seconds, weight bytes)."""
+def load_full(arch, device, layers=None):
+    """The published config at full width and depth (``layers``: its
+    depth cut to that many layers), random bf16 weights from seed 0:
+    (cfg, params, init seconds, weight bytes)."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     t0 = time.perf_counter()
     params = get_model(cfg).init(0, device)
     torch.cuda.synchronize()
@@ -2672,14 +2741,15 @@ def no_launch_but(launches, kernel: str, what: str) -> None:
 
 
 def phase_ssm(device):
-    """mamba2-2.7b at full published width and depth (64 layers, d_model
-    2560, 80 heads of 64, state 128, conv 4, chunk 256, vocab 50280,
-    bf16): the ``full`` traffic with 1024-token prompts, twice. The
+    """mamba2-2.7b at full published width (d_model 2560, 80 heads of 64,
+    state 128, conv 4, chunk 256, vocab 50280, bf16), SSM_LAYERS of its
+    64 layers: the ``full`` traffic with 1024-token prompts, twice. The
     recurrent state and conv leaves are pinned EXACT, so no kernel
     launches and no bit is written. Returns the launches of one run (all
     0)."""
     from repro_torch.serve import ServeConfig, ServingEngine
-    cfg, params, init_s, n_bytes = load_full("mamba2-2.7b", device)
+    cfg, params, init_s, n_bytes = load_full("mamba2-2.7b", device,
+                                             SSM_LAYERS)
     eng = ServingEngine(cfg, ServeConfig(
         max_seq=PROMPT_LEN_SSM + NEW_TOKENS, max_new_tokens=NEW_TOKENS,
         backend="cuda"), params, device=device)
@@ -2698,6 +2768,7 @@ def phase_ssm(device):
     slot = eng.api.init_cache(1, 1, "meta")
     state_bytes = {k: v.numel() * v.element_size() for k, v in slot.items()}
     emit({"phase": "ssm", "arch": cfg.name, "layers": cfg.num_layers,
+          "layers_published": 64,
           "params": eng.api.num_params(), "param_bytes": n_bytes,
           "init_s": init_s, "requests": N_REQ, "capacity": CAPACITY,
           "prompt_len": PROMPT_LEN_SSM, "chunks_per_prompt":
@@ -2715,21 +2786,22 @@ def phase_ssm(device):
 
 
 def phase_vlm(device):
-    """llava-next-mistral-7b at full published width and depth (32
-    layers, d_model 4096, 32 heads over 8 KV heads of 128, d_ff 14336,
-    vocab 32000, 2880 image tokens of 1024, bf16): the ``full`` traffic
-    with 256-token text prompts behind their image columns (max_seq
-    3168), the embeddings drawn by ``synthetic_requests`` from each
-    request's modal_seed, twice; then one admission write (32, 1, 3168,
-    8, 128) bf16 held against the twin and timed. Returns the launches of
-    one run and the write's timing."""
+    """llava-next-mistral-7b at full published width (d_model 4096, 32
+    heads over 8 KV heads of 128, d_ff 14336, vocab 32000, 2880 image
+    tokens of 1024, bf16), VLM_LAYERS of its 32 layers: the ``full``
+    traffic with 256-token text prompts behind their image columns
+    (max_seq 3168), the embeddings drawn by ``synthetic_requests`` from
+    each request's modal_seed, twice; then one admission write (8, 1,
+    3168, 8, 128) bf16 held against the twin and timed. Returns the
+    launches of one run and the write's timing."""
     import torch
     from repro_torch import tree as T
     from repro_torch.core.priority import Priority
     from repro_torch.kernels.extent_write import ops
     from repro_torch.serve import (ServeConfig, ServingEngine,
                                    synthetic_requests)
-    cfg, params, init_s, n_bytes = load_full("llava-next-mistral-7b", device)
+    cfg, params, init_s, n_bytes = load_full("llava-next-mistral-7b", device,
+                                             VLM_LAYERS)
     max_seq = cfg.num_image_tokens + PROMPT_LEN_VLM + NEW_TOKENS
     eng = ServingEngine(cfg, ServeConfig(
         max_seq=max_seq, max_new_tokens=NEW_TOKENS, backend="cuda"), params,
@@ -2766,6 +2838,7 @@ def phase_vlm(device):
          for o, n, v in zip(stale, news, vecs)], derived_rtol=True)
     tot = rep["total"]
     emit({"phase": "vlm", "arch": cfg.name, "layers": cfg.num_layers,
+          "layers_published": 32,
           "params": eng.api.num_params(), "param_bytes": n_bytes,
           "init_s": init_s, "requests": N_REQ, "capacity": CAPACITY,
           "prompt_len": PROMPT_LEN_VLM,
@@ -2907,6 +2980,182 @@ def phase_audio(device):
           "ok": True})
     return launches["extent_write"], {"prefill_cross": pre,
                                       "decode_column": dec}
+
+
+#: the dense windowed phase, each at full published width and depth:
+#: gemma2-9b (a 4096-key window on alternate layers, softcaps 50 and 30,
+#: post-norms, gelu), mistral-nemo-12b (no window) and h2o-danube-1.8b (a
+#: 4096-key window on every layer, heads of 80)
+DENSE_WINDOW_ARCHS = ("gemma2-9b", "mistral-nemo-12b", "h2o-danube-1.8b")
+#: their prompts: past the 4096-key window, so every windowed leaf's
+#: ring wraps at the prefill and again under the decode writes
+PROMPT_LEN_WINDOWS = 6144
+#: the windowed models' decode after the ring wrapped (NEW_TOKENS steps
+#: from a PROMPT_LEN_WINDOWS-token prompt) against one prefill over the
+#: same tokens, bf16. Held: the K and V the decode wrote in the first
+#: WRAP_LAYERS layers, each layer's largest difference as a fraction of
+#: its largest prefill value (layer 0's is the projection alone; layer
+#: 1's reads layer 0's attention over the wrapped ring), within
+#: WRAP_CACHE_RTOL; and gemma2-9b's last logits, as a fraction of the
+#: largest, within WRAP_LOGITS_RTOL. The logits of a stack without
+#: post-norms are not held: with random weights such a stack amplifies
+#: the decode's and the prefill's different rounding about 45x a layer
+#: (h2o-danube-1.8b in float32 on the CPU, window 64: 6.0e-6 at 2
+#: layers, 0.31 at 8, 0.73 at 12), so at 24 layers its logits differ
+#: wholly either way; they are printed. Bounds at about three times the
+#: largest measured on the H100 (80GB HBM3, 700 W): layers 0-1 5.4e-3
+#: (gemma2-9b's layer 1; h2o-danube-1.8b's 3.7e-3), gemma2-9b's logits
+#: 2.2e-2; lifting the windows moves layer 1 by 0.69 and 0.93 and
+#: gemma2-9b's logits by 0.58
+WRAP_LAYERS = 2
+WRAP_CACHE_RTOL = 0.016
+WRAP_LOGITS_RTOL = 0.066
+
+
+def wrap_check(eng, device) -> dict:
+    """One request through the model of ``eng`` (bf16): a prompt of
+    PROMPT_LEN_WINDOWS tokens, then NEW_TOKENS decode steps fed the
+    following tokens, against one prefill over all of them, and against
+    a prefill with every window lifted (the difference the windows
+    make). Per layer, the decode-written K/V columns' largest difference
+    from the prefill's, as a fraction of the layer's largest prefill
+    value; the last logits' likewise. Held as WRAP_CACHE_RTOL and
+    WRAP_LOGITS_RTOL say."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import FULL_ATTENTION
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import cache_spec
+    cfg, api, params = eng.cfg, eng.api, eng.params
+    max_seq = PROMPT_LEN_WINDOWS + NEW_TOKENS
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (1, max_seq))).to(device)
+    logits, cache = api.prefill(
+        params, {"tokens": toks[:, :PROMPT_LEN_WINDOWS]}, max_seq)
+    for i in range(PROMPT_LEN_WINDOWS, max_seq):
+        logits, cache = api.decode_step(
+            params, toks[:, i], cache,
+            torch.full((1,), i, dtype=torch.int64, device=device), max_seq)
+    lifted = get_model(dataclasses.replace(cfg, window_pattern=tuple(
+        FULL_ATTENTION for _ in cfg.window_pattern)))
+    spec = cache_spec(cfg, max_seq)
+    plen = len(cfg.window_pattern)
+    written = torch.arange(PROMPT_LEN_WINDOWS, max_seq, device=device)
+
+    def against(model):
+        ref, ref_cache = model.prefill(params, {"tokens": toks}, max_seq)
+        ref_spec = cache_spec(model.cfg, max_seq)
+        per_layer = []
+        for layer in range(cfg.num_layers):
+            name, g = f"slot{layer % plen}", layer // plen
+            errs = []
+            for kv in ("k", "v"):
+                got = cache[name][kv][g][:, written % spec[name][0]]
+                want = ref_cache[name][kv][g][
+                    :, written % ref_spec[name][0]].float()
+                errs.append(float((got.float() - want).abs().max())
+                            / float(want.abs().max()))
+            per_layer.append(max(errs))
+        return (float((logits - ref).abs().max())
+                / float(ref.abs().max()), per_layer)
+
+    logits_err, layers = against(api)
+    lifted_logits, lifted_layers = against(lifted)
+    held_logits = cfg.use_post_norms
+    out = {"decode_steps": NEW_TOKENS,
+           "positions": [PROMPT_LEN_WINDOWS, max_seq - 1],
+           "held_layers": WRAP_LAYERS, "cache_rtol": WRAP_CACHE_RTOL,
+           "cache_rel_err_per_layer": layers,
+           "unwindowed_cache_rel_err_per_layer": lifted_layers,
+           "logits_rel_err": logits_err,
+           "logits_held": held_logits,
+           "logits_rtol": WRAP_LOGITS_RTOL if held_logits else None,
+           "unwindowed_logits_rel_err": lifted_logits}
+    if max(layers[:WRAP_LAYERS]) > WRAP_CACHE_RTOL or (
+            held_logits and logits_err > WRAP_LOGITS_RTOL):
+        raise AssertionError(f"dense_windows: {cfg.name}: decode after "
+                             f"the wrap against a prefill {out}")
+    return out
+
+
+def phase_dense_windows(device, arch):
+    """``arch`` at full published width and depth (bf16, random weights
+    from seed 0): the ``full`` traffic with prompts of PROMPT_LEN_WINDOWS
+    (max_seq 6176), twice, identical in tokens, flips, errors and
+    launches, one extent_write launch per cache leaf (K and V of each
+    window capacity) per admission group and decode step; then one
+    admission write per capacity (a K leaf of a prompt over the stale
+    rows of pool slot 0: a wrapped 4096-row ring, a 6176-row global
+    leaf) against the twin, bit-exact with its energy inside
+    ``energy_rtol``, and timed; for a windowed model ``wrap_check``.
+    Returns the launches of one run and the writes' timings."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core.priority import Priority
+    from repro_torch.kernels.extent_write import ops
+    from repro_torch.models.transformer import cache_spec
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg, params, init_s, n_bytes = load_full(arch, device)
+    max_seq = PROMPT_LEN_WINDOWS + NEW_TOKENS
+    eng = ServingEngine(cfg, ServeConfig(
+        max_seq=max_seq, max_new_tokens=NEW_TOKENS, backend="cuda"), params,
+        device=device)
+    spec = cache_spec(cfg, max_seq)
+    pool = eng.api.init_cache(CAPACITY, max_seq, "meta")
+    step_ms = decode_step_ms(eng, PROMPT_LEN_WINDOWS, CAPACITY)
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        rep, sch, wall = serve_full(eng, PROMPT_LEN_WINDOWS)
+        launches = read_launches()
+        check_write_launches(launches, rep, 2 * len(spec))
+        no_launch_but(launches, "extent_write", arch)
+        runs.append((rep, wall, launches))
+    (rep, wall, launches), again = runs
+    if not (same_run(again[0], rep) and again[2] == launches):
+        raise AssertionError(f"dense_windows: {arch}: two runs of one "
+                             f"traffic differ")
+    peak = torch.cuda.max_memory_allocated()
+    vecs = eng.vectors_for_floor(Priority.LOW)
+    news = admission_rows(eng, 11)
+    stale = T.leaves(sch.pool.extract_rows([0]))
+    del sch
+    writes = {}
+    for (path, _), o, n, v in zip(T.flatten(pool), stale, news, vecs):
+        if path[-1] != "k":
+            continue
+        kind = "local" if spec[path[0]][0] < max_seq else "global"
+        writes[kind] = time_writes(
+            f"{arch} admission, {kind} K leaf {tuple(n.shape)} bf16 over "
+            f"stale rows", [(ops.to_lanes(o), ops.to_lanes(n),
+                             (v.thr01, v.thr10, v.le01, v.le10))],
+            derived_rtol=True)
+    del stale, news
+    wrap = wrap_check(eng, device) if "local" in writes else None
+    tot = rep["total"]
+    emit({"phase": "dense_windows", "arch": cfg.name,
+          "layers": cfg.num_layers, "head_dim": cfg.head_dim,
+          "window_pattern": list(cfg.window_pattern),
+          "cache_leaves": {k: {"capacity": c, "window": w}
+                           for k, (c, w) in spec.items()},
+          "params": eng.api.num_params(), "param_bytes": n_bytes,
+          "init_s": init_s, "kv_pool_bytes": sum(
+              x.numel() * x.element_size() for x in T.leaves(pool)),
+          "requests": N_REQ, "capacity": CAPACITY,
+          "prompt_len": PROMPT_LEN_WINDOWS, "max_seq": max_seq,
+          "new_tokens": NEW_TOKENS, "clock_steps": rep["clock_steps"],
+          "decode_steps": rep["decode_steps"], "bursts": rep["bursts"],
+          "admission_groups": rep["pool"]["admission_groups"],
+          "wall_s": [wall, again[1]],
+          "tokens_per_s": N_REQ * NEW_TOKENS / wall,
+          "decode_ms_per_step_b4": step_ms, "peak_mem_bytes": peak,
+          "kv_write_energy_pj": tot["energy_pj"],
+          "ber": tot["ber_realized"], "bursts_sync_free": True,
+          "two_runs_identical": True,
+          "extent_write_launches": launches["extent_write"],
+          "admission_writes": writes, "wrap": wrap, "ok": True})
+    return launches["extent_write"], writes
 
 
 def phase_sampling(device, eng_full, full_launches):
@@ -4309,7 +4558,8 @@ def phase_checkpoint(device):
 
 #: every family's reduced config of the train_reduced phase
 TRAIN_FAMILIES = ("qwen2.5-3b", "dbrx-132b", "recurrentgemma-2b",
-                  "mamba2-2.7b", "llava-next-mistral-7b", "whisper-large-v3")
+                  "mamba2-2.7b", "llava-next-mistral-7b", "whisper-large-v3",
+                  "gemma2-9b", "mistral-nemo-12b", "h2o-danube-1.8b")
 #: card against CPU after one train step of a reduced config, from the
 #: same parameters and batch: the loss and the gradient norm relative, at
 #: 3x the largest card-versus-CPU difference measured over the six
@@ -4744,7 +4994,6 @@ def phase_tools(device, train_step_ms: float):
 
 
 def main() -> int:
-    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
@@ -4826,6 +5075,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         full_width[phase.__name__[len("phase_"):]] = phase(device)
+    # the dense windowed models and scout, each alone
+    dense = {}
+    for arch in DENSE_WINDOW_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dense[arch] = phase_dense_windows(device, arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    scout_launches, scout_admission = phase_scout(device)
+    entries[0]["launches_by_path"].update(
+        {arch: n for arch, (n, _) in dense.items()}, scout=scout_launches)
+    entries[0]["at"].update(
+        {f"admission_{arch}_{kind}": w for arch, (_, ws) in dense.items()
+         for kind, w in ws.items()}, admission_scout=scout_admission)
     gc.collect()
     torch.cuda.empty_cache()
     phase_paper(device)
@@ -4870,7 +5134,7 @@ def main() -> int:
     for e in entries:
         e["launches_by_path"].update(
             {k: v[e["name"]] for k, v in train_launches.items()})
-    emit({"phase": "done", "script_s": time.perf_counter() - t_start})
+    emit({"phase": "done", "script_s": time.perf_counter() - T_START})
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": entries})
     print(json.dumps({"ok": True, "device": {

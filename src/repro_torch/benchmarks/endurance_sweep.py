@@ -20,11 +20,13 @@ to the device. Asserted claims land in ``out["claims"]``.
 """
 from __future__ import annotations
 
+import json
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch import rng
+from repro_torch.benchmarks import arg_parser
 from repro_torch.core.priority import Priority
 from repro_torch.device import resolve_device
 from repro_torch.memory import (AddressSpec, WritePlan, WriteStats,
@@ -156,3 +158,16 @@ def bench_metrics(out: Dict) -> Dict[str, float]:
     }
     m.update({f"claim.{k}": v for k, v in out["claims"].items()})
     return m
+
+
+def parser():
+    return arg_parser(__doc__)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    print(json.dumps(run(device=args.device), indent=1, default=float))
+
+
+if __name__ == "__main__":
+    main()

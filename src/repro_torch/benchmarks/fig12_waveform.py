@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch.benchmarks import arg_parser
 from repro_torch.core.approx_store import approx_write_with_stats
 from repro_torch.core.priority import Priority
 from repro_torch.device import resolve_device
@@ -58,3 +59,21 @@ def run(device=None):
         < events[0]["energy_pj"],
     }
     return {"events": events, "checks": checks}
+
+
+def parser():
+    return arg_parser(__doc__)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    out = run(device=args.device)
+    for e in out["events"]:
+        print(f"{e['event']:30s} E={e['energy_pj']:8.1f} pJ "
+              f"lat={e['latency_ns']:5.2f} ns flips={e['bits_flipped']:3d} "
+              f"errs={e['bit_errors']}")
+    print(out["checks"])
+
+
+if __name__ == "__main__":
+    main()

@@ -9,10 +9,13 @@ reads (the cache's first leaf, the moments' second: the final norm).
 """
 from __future__ import annotations
 
+import json
+
 import torch
 
 from repro_torch import rng
 from repro_torch import tree as T
+from repro_torch.benchmarks import arg_parser
 from repro_torch.configs import get_config
 from repro_torch.core import cache_sim
 from repro_torch.device import resolve_device
@@ -57,3 +60,16 @@ def run(device=None):
         "expensive_share": mm.expensive_share,
     }
     return out
+
+
+def parser():
+    return arg_parser(__doc__)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    print(json.dumps(run(device=args.device), indent=1, default=float))
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,10 @@
 the corners evaluated on the device."""
 from __future__ import annotations
 
+import json
+
 from repro_torch import rng
+from repro_torch.benchmarks import arg_parser
 from repro_torch.core import energy_model
 from repro_torch.device import resolve_device
 
@@ -32,3 +35,16 @@ def run(n: int = 1000, device=None):
         "wer_low_under_pv": mc["wer_low"],
         "n_samples": n,
     }
+
+
+def parser():
+    return arg_parser(__doc__)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    print(json.dumps(run(device=args.device), indent=1, default=float))
+
+
+if __name__ == "__main__":
+    main()

@@ -10,6 +10,7 @@ from __future__ import annotations
 import time
 
 from repro_torch import rng
+from repro_torch.benchmarks import arg_parser
 from repro_torch.core import mtj, wer
 from repro_torch.device import resolve_device
 
@@ -35,3 +36,17 @@ def run(n_mc: int = 128, device=None):
     out["monotone"] = bool(all(a >= b - 0.05 for a, b in zip(wers, wers[1:])))
     out["us_per_call"] = (time.time() - t0) / (4 * n_mc) * 1e6
     return out
+
+
+def parser():
+    return arg_parser(__doc__)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    for k, v in run(device=args.device).items():
+        print(k, v)
+
+
+if __name__ == "__main__":
+    main()

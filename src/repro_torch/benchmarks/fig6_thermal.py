@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.benchmarks import arg_parser
 from repro_torch.core import mtj, wer
 from repro_torch.device import resolve_device
 
@@ -37,3 +38,17 @@ def run(device=None):
         # hotter die -> lower Delta -> easier switching -> lower write WER
         "wer_thermal_monotone_down": bool(np.all(np.diff(wth) <= 1e-12)),
     }
+
+
+def parser():
+    return arg_parser(__doc__)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    for k, v in run(device=args.device).items():
+        print(f"{k}: {v}")
+
+
+if __name__ == "__main__":
+    main()

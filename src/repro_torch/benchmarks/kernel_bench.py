@@ -22,11 +22,13 @@ draws of ``PRNGKey(0)`` and ``PRNGKey(1)``, bit-exact with
 """
 from __future__ import annotations
 
+import json
 import time
 
 import torch
 
 from repro_torch import memory, rng
+from repro_torch.benchmarks import arg_parser
 from repro_torch.core.approx_store import approx_write_with_stats
 from repro_torch.core.priority import Priority
 from repro_torch.device import resolve_device
@@ -115,3 +117,16 @@ def bench_metrics(out) -> dict:
     for level, secs in out["level_sweep_s"].items():
         m[f"level_sweep_{level.lower()}_s"] = secs
     return m
+
+
+def parser():
+    return arg_parser(__doc__)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    print(json.dumps(run(device=args.device), indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -19,10 +19,13 @@ realized BER moves only within noise (asserted within tolerance).
 """
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch.benchmarks import arg_parser
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.serve import (ContinuousScheduler, Request, ServeConfig,
@@ -152,3 +155,17 @@ def bench_metrics(out) -> dict:
         "reduction_ge_30pct":
             out["claims"]["admission_energy_reduction_ge_30pct"],
     }
+
+
+def parser():
+    return arg_parser(__doc__, fast=True)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    res = run(n=12 if args.fast else 16, device=args.device)
+    print(json.dumps(res, indent=2, default=float))
+
+
+if __name__ == "__main__":
+    main()

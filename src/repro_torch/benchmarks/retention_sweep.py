@@ -15,11 +15,13 @@ keys are the reference's, so every count equals the reference's.
 """
 from __future__ import annotations
 
+import json
 from typing import Dict
 
 import torch
 
 from repro_torch import rng
+from repro_torch.benchmarks import arg_parser
 from repro_torch.core.priority import Priority, path_contains
 from repro_torch.device import resolve_device
 from repro_torch.memory import MemoryRegion, default_backend
@@ -110,3 +112,16 @@ def bench_metrics(out) -> Dict[str, float]:
         m[f"{tag}_v_rel_err"] = d["v_rel_err"]
     m.update({f"claim_{k}": bool(v) for k, v in out["claims"].items()})
     return m
+
+
+def parser():
+    return arg_parser(__doc__)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    print(json.dumps(run(device=args.device), indent=1, default=float))
+
+
+if __name__ == "__main__":
+    main()

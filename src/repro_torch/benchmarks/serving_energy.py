@@ -25,6 +25,7 @@ its CUDA-core route) and the int8 fidelity check the ``kv_quant`` kernel.
 """
 from __future__ import annotations
 
+import json
 import time
 
 import numpy as np
@@ -32,6 +33,7 @@ import torch
 
 from repro_torch import rng
 from repro_torch import tree as T
+from repro_torch.benchmarks import arg_parser
 from repro_torch.configs import get_config
 from repro_torch.core.energy_model import (exact_baseline_energy_pj,
                                            zero_slot_stats)
@@ -350,3 +352,16 @@ def bench_metrics(out) -> dict:
     m["lockstep_bit_exact"] = bool(out["lockstep_parity"]["bit_exact"])
     m["kv_quant_rel_err"] = out["kv_quant_rel_err"]
     return m
+
+
+def parser():
+    return arg_parser(__doc__)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    print(json.dumps(run(device=args.device), indent=1, default=float))
+
+
+if __name__ == "__main__":
+    main()

@@ -34,12 +34,14 @@ and the locality profile and makes the claims; ``run`` asserts them
 """
 from __future__ import annotations
 
+import json
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import rng
+from repro_torch.benchmarks import arg_parser
 from repro_torch.configs import get_config
 from repro_torch.core.energy_model import zero_slot_stats
 from repro_torch.core.priority import Priority
@@ -255,3 +257,18 @@ def bench_metrics(out) -> dict:
     m["total_energy_pj"] = out["ledger"]["energy_pj"]
     m.update({k: v for k, v in out["claims"].items()})
     return m
+
+
+def parser():
+    return arg_parser(__doc__, fast=True)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    res = run(n=6 if args.fast else 8, repeats=2 if args.fast else 3,
+              device=args.device)
+    print(json.dumps(res, indent=2, default=float))
+
+
+if __name__ == "__main__":
+    main()

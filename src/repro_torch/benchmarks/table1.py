@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.benchmarks import arg_parser
 from repro_torch.core import cache_sim, write_driver
 from repro_torch.device import resolve_device
 
@@ -48,3 +49,24 @@ def run(device=None):
         "paper_claim_area": 0.037,
     }
     return {"rows": rows, "claims": claims}
+
+
+def parser():
+    return arg_parser(__doc__)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    out = run(device=args.device)
+    print(f"{'scheme':16s} {'area':>6s} {'lat ns':>7s} {'E pJ':>7s} "
+          f"self-term")
+    for r in out["rows"]:
+        print(f"{r['scheme']:16s} {r['area_mm2']:6.2f} "
+              f"{r['latency_ns']:7.2f} {r['energy_pj']:7.1f} "
+              f"{r['self_term']}")
+    for k, v in out["claims"].items():
+        print(f"{k}: {v:.4f}")
+
+
+if __name__ == "__main__":
+    main()

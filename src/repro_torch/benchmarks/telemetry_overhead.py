@@ -22,11 +22,13 @@ run); ``measure`` makes the result and its claims; ``run`` asserts them
 from __future__ import annotations
 
 import gc
+import json
 import time
 from typing import Dict
 
 import torch
 
+from repro_torch.benchmarks import arg_parser
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.serve import (ContinuousScheduler, ServeConfig, ServingEngine,
@@ -137,3 +139,17 @@ def bench_metrics(out) -> dict:
         "telemetry_spans": float(out["telemetry"]["spans"]),
         "drains_per_event": out["telemetry"]["drains_per_event"],
     }
+
+
+def parser():
+    return arg_parser(__doc__, fast=True)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    res = run(repeats=4 if args.fast else 6, device=args.device)
+    print(json.dumps(res, indent=1, sort_keys=True, default=float))
+
+
+if __name__ == "__main__":
+    main()

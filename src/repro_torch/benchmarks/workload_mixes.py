@@ -25,8 +25,10 @@ those rows go stuck-at, the rotate policy migrates them first.
 """
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, List, Sequence
 
+from repro_torch.benchmarks import arg_parser
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.reliability import make_scrub_policy, make_wear_policy
@@ -225,3 +227,17 @@ def bench_metrics(out) -> dict:
         "adversarial_rotations": adv["rotate"]["rotations"],
         "ramp_monotone": out["claims"]["ramp_pressure_monotone"],
     }
+
+
+def parser():
+    return arg_parser(__doc__, fast=True)
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+    res = run(events=4 if args.fast else 6, device=args.device)
+    print(json.dumps(res, indent=2, default=float))
+
+
+if __name__ == "__main__":
+    main()

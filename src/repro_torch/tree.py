@@ -52,20 +52,7 @@ class TreeDef:
 
     def unflatten(self, leaves: List[Any]) -> Any:
         it = iter(leaves)
-
-        def build(node):
-            if node is None:
-                return None
-            if node == "*":
-                return next(it)
-            typ, keys, kids = node
-            vals = [build(k) for k in kids]
-            if typ is dict:
-                return dict(zip(keys, vals))
-            if _is_namedtuple_type(typ):
-                return typ(*vals)
-            return typ(vals)
-        out = build(self._node)
+        out = _build(self._node, it)
         assert next(it, None) is None, "more leaves than the structure holds"
         return out
 
@@ -73,24 +60,43 @@ class TreeDef:
         """The subtrees of ``tree`` (a tree of this structure, or a
         deeper one) at this structure's leaves, in leaf order."""
         out: List[Any] = []
-
-        def walk(node, t):
-            if node is None:
-                return
-            if node == "*":
-                out.append(t)
-                return
-            typ, keys, kids = node
-            if typ is dict:
-                assert sorted(t) == list(keys), (sorted(t), keys)
-                vals = [t[k] for k in keys]
-            else:
-                assert len(t) == len(kids), (len(t), len(kids))
-                vals = list(t)
-            for k, v in zip(kids, vals):
-                walk(k, v)
-        walk(self._node, tree)
+        _collect(self._node, tree, out)
         return out
+
+
+# The recursions are module functions, not closures: a closure that calls
+# itself holds a reference cycle through its own cell, and the cycle would
+# keep the leaves it reached (whole KV caches on the card) alive until the
+# garbage collector next runs.
+def _build(node: Any, it) -> Any:
+    if node is None:
+        return None
+    if node == "*":
+        return next(it)
+    typ, keys, kids = node
+    vals = [_build(k, it) for k in kids]
+    if typ is dict:
+        return dict(zip(keys, vals))
+    if _is_namedtuple_type(typ):
+        return typ(*vals)
+    return typ(vals)
+
+
+def _collect(node: Any, t: Any, out: List[Any]) -> None:
+    if node is None:
+        return
+    if node == "*":
+        out.append(t)
+        return
+    typ, keys, kids = node
+    if typ is dict:
+        assert sorted(t) == list(keys), (sorted(t), keys)
+        vals = [t[k] for k in keys]
+    else:
+        assert len(t) == len(kids), (len(t), len(kids))
+        vals = list(t)
+    for k, v in zip(kids, vals):
+        _collect(k, v, out)
 
 
 def _walk(tree: Any, prefix: Path, out: List[Tuple[Path, Any]]) -> Any:

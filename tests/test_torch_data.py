@@ -22,7 +22,7 @@ from repro_torch import rng
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.train import data as data_mod
 from repro_torch.train.train_step import IGNORE
-from test_torch_train_step import one_thread  # noqa: F401  (autouse)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 CFG = data_mod.DataConfig(vocab_size=128, seq_len=16, global_batch=4,

@@ -36,6 +36,7 @@ from repro_torch.configs import get_config
 from repro_torch.serve import ServeConfig, ServingEngine
 from test_torch_serve import ARCH
 from test_torch_serving_benchmarks import engine_factory, jparams  # noqa
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 RTOL = 1e-5

@@ -40,6 +40,7 @@ from repro_torch.launch import hw
 from repro_torch.serve import ServingEngine
 from repro_torch.serve.engine import _tag_cache, eager_extent_cache_write
 from test_torch_serve import ARCH, JaxModel
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 ORACLE_ENERGY_RTOL = 5e-5

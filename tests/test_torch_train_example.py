@@ -5,7 +5,7 @@ the reference's: 40 steps at dim 128 (seq 64, batch 4), the save at step
 step 20 restoring it (parameters, optimizer state and the data cursor),
 and the example's own "must learn" assert."""
 from repro_torch.examples import train_lm_extent
-from test_torch_train_step import one_thread  # noqa: F401  (autouse)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def test_train_lm_extent_short(capsys, tmp_path):

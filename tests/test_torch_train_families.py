@@ -5,9 +5,10 @@ of ``test_torch_train_step.py`` (which holds the dense, moe and vlm
 families), one JAX compile per configuration."""
 import pytest
 
-from test_torch_train_step import (  # noqa: F401  (one_thread: autouse)
-    build_family, check_hidden_states_and_aux, check_loss_and_gradients,
-    one_thread)
+from test_torch_train_step import (build_family,
+                                   check_hidden_states_and_aux,
+                                   check_loss_and_gradients)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", params=["recurrentgemma-2b", "mamba2-2.7b",

@@ -41,7 +41,8 @@ from repro_torch.train.accumulate import (AccumConfig, make_accum_train_step,
                                           split_batch)
 from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.train_step import make_train_step, value_and_grad
-from test_torch_train_step import one_thread, to_jax  # noqa: F401
+from test_torch_train_step import to_jax
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 STEPS = 30

@@ -47,6 +47,7 @@ from repro_torch.core.priority import keystr
 from repro_torch.models import get_model, layers
 from repro_torch.train import optimizer as opt
 from repro_torch.train import train_step as tts
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 #: (hidden-state fraction, loss relative, gradient leaf fraction), ~3x
@@ -69,16 +70,6 @@ LB_RTOL = 7e-7
 CE_RTOL = 2e-6
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the module's tiny models: the suite runs
-    on several workers at once, where torch's default thread pool (one
-    thread a core, in every worker) stalls each small op at its
-    barrier."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 #: the families whose forward returns the MoE aux
 LB_FAMILIES = ("dense", "moe", "vlm")
 
