@@ -345,12 +345,31 @@ each printed as one JSON line:
  32. train_launcher
                   — repro_torch.launch.train main through argv (qwen2.5-3b
                     at full width, depth cut to CKPT_LAYERS, --compress,
-                    one asynchronous EXTENT save at step 2 of 3): the
-                    save's extent_write launches, one per changed moment
-                    leaf, held against its report, its stage seconds;
-                    then repro_torch.examples.train_lm_extent --steps 60
-                    on the card (saves, the restore at step 30, its
-                    "must learn" check).
+                    one asynchronous EXTENT save at step 2 of 3), which
+                    runs as one nccl rank on the card: the save's
+                    extent_write launches, one per changed moment leaf,
+                    held against its report, its stage seconds; its leaf
+                    files byte-identical to the one-process loop's from
+                    the same seeds; that checkpoint restored with the
+                    400 K integrity pass through the rank path
+                    (Checkpointer.restore(dims=): one scrub launch per
+                    moment leaf), every leaf and the report equal to the
+                    one-process restore's; then
+                    repro_torch.examples.train_lm_extent --steps 60 on
+                    the card (saves, the restore at step 30, its "must
+                    learn" check).
+ 32b. train_mesh  — the data-axis training path on a one-rank nccl group
+                    (the (1, 1) production mesh, the baseline rules'
+                    DataShards): qwen2.5-3b at the train phase's shapes
+                    (36 layers, seq 4096, batch 2, full remat)
+                    MESH_STEPS steps through make_sharded_train_step
+                    against the plain steps from the same seeded state
+                    and batches, every parameter and moment (two int64
+                    sums of each leaf's bits) and every metric equal
+                    after each step; each step's ms, the group's start
+                    (its first collective builds the communicator), each
+                    path's peak memory beside what earlier phases left
+                    allocated, and nvidia-smi's line.
  33. tools        — the port's tools on the card: repro_torch.launch.
                     dryrun.smoke_backends("cuda") (a bf16 (33,) and an
                     int8 (129,) write through every memory backend; the
@@ -375,12 +394,13 @@ workload, hybrid, moe, ssm, vlm, audio, dense_windows (three models),
 scout (each full-width model loads after the previous one is freed),
 paper, serving_bench,
 checkpoint_reduced, checkpoint, train_reduced, train, train_launcher,
-tools; then the script's seconds (``done``), nvidia-smi's line again and the
-kernels line, where every entry adds its launches on each path
-(``launches_by_path``: ``serving_bench``, ``checkpoint_reduced``,
-``checkpoint``, ``train_reduced``, ``train``, ``train_launcher`` and
-``tools`` in all four; extent_write's also each dense windowed
-model's and ``scout``), extent_write the MoE and
+train_mesh, tools; then the script's seconds (``done``), nvidia-smi's
+line again and the kernels line, where every entry adds its launches on
+each path (``launches_by_path``: ``serving_bench``,
+``checkpoint_reduced``, ``checkpoint``, ``train_reduced``, ``train``,
+``train_launcher``, ``train_mesh`` and ``tools`` in all four;
+extent_write's also each dense windowed model's and ``scout``),
+extent_write the MoE and
 vlm admission writes and the audio prefill's cross K/V and decode
 column (``at.admission_moe``, ``at.admission_vlm``,
 ``at.admission_<arch>_<local|global>`` of the dense windowed models,
@@ -4826,23 +4846,103 @@ def phase_train(device):
     return launches, step_ms
 
 
+def state_digest(tree) -> list:
+    """Per leaf, two int64 sums of its bits on the card (plain, and each
+    element weighted by its index mod 65521, plus 1): a bit-identity
+    check of trees too large to keep two of."""
+    import torch
+    from repro_torch import tree as T
+    out = []
+    for x in T.leaves(tree):
+        w = int_bits(x.detach()).reshape(-1)
+        acc = torch.zeros(2, dtype=torch.int64, device=x.device)
+        for a in range(0, w.numel(), 1 << 26):
+            c = w[a:a + (1 << 26)].to(torch.int64)
+            idx = torch.arange(a, a + c.numel(), device=x.device) % 65521
+            acc[0] += c.sum()
+            acc[1] += (c * (idx + 1)).sum()
+        out.append(acc)
+    return torch.stack(out).tolist()
+
+
+def meta_like(tree):
+    import torch
+    from repro_torch import tree as T
+    return T.tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                            device="meta"), tree)
+
+
+def launcher_replay(cfg, argv_steps: int, seq: int, batch: int, root,
+                    save_at: int, device):
+    """The launcher's --compress loop of this commit's parent, one
+    process and no group: value_and_grad, compress_grads and a donated
+    AdamW update on the whole state, the asynchronous EXTENT save at
+    ``save_at``. Returns the state after the last step."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.memory import default_backend
+    from repro_torch.models import get_model
+    from repro_torch.train import compression as comp
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.train_step import value_and_grad
+    api = get_model(cfg)
+    params = api.init(0, device)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=10,
+                           total_steps=argv_steps)
+    state = opt.init(params)
+    ccfg = comp.CompressionConfig(enable=True)
+    ef = comp.init_state(params)
+    ck = Checkpointer(str(root), async_save=True,
+                      extent_policy=launch_train.moments_low,
+                      extent_backend=default_backend(device), device=device)
+    it = data_mod.DataIterator(data_mod.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch),
+        device=device)
+    for i in range(argv_steps):
+        _, _, grads = value_and_grad(api, params, next(it), remat=True)
+        grads, ef = comp.compress_grads(grads, ef, ccfg)
+        params, state, _ = opt.update(ocfg, grads, state, params,
+                                      donate=True)
+        if i == save_at:
+            ck.save(i, {"params": params, "opt": state},
+                    extra=it.state_dict())
+    ck.wait()
+    return {"params": params, "opt": state}
+
+
 def phase_train_launcher(device):
     """The port's launch/train.py main through argv: qwen2.5-3b at full
     width, depth cut to CKPT_LAYERS, --compress, an asynchronous EXTENT
-    checkpoint at step 2 of 3 (seq 2048, batch 2): its extent_write
-    launches (one per changed moment leaf) held against its report, its
-    stage seconds printed. Then repro_torch.examples.train_lm_extent
-    --steps 60 on the card: its saves, the restore at step 30 and its
-    "must learn" check."""
+    checkpoint at step 2 of 3 (seq 2048, batch 2), through the rank path
+    (one nccl rank on the card): its extent_write launches (one per
+    changed moment leaf) held against its report, its stage seconds
+    printed; its leaf files byte-identical to the one-process loop's
+    (``launcher_replay``, uncounted). That checkpoint restored with the
+    400 K integrity pass through the rank path (``Checkpointer.restore
+    (dims=)`` on a one-rank group: one scrub launch per moment leaf)
+    against the one-process restore (uncounted): every leaf and the
+    report equal. Then repro_torch.examples.train_lm_extent --steps 60
+    on the card: its saves, the restore at step 30 and its "must learn"
+    check."""
     import dataclasses
     import io
     import shutil
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.device import (end_process_group, local_rendezvous,
+                                    start_process_group)
     from repro_torch.examples import train_lm_extent
     from repro_torch.launch import train as launch_train
+    from repro_torch.models import get_model
+    from repro_torch.reliability import RestoreIntegrity
+    from repro_torch.sharding import make_production_mesh
+    from repro_torch.sharding.rules import data_shards, strategy_rules
+    from repro_torch.train.checkpoint import Checkpointer
     root = CKPT_DIR / "launcher"
-    shutil.rmtree(root, ignore_errors=True)
+    plain_root = CKPT_DIR / "launcher_one_process"
+    for d in (root, plain_root):
+        shutil.rmtree(d, ignore_errors=True)
 
     def cut(arch):
         return dataclasses.replace(get_config(arch), num_layers=CKPT_LAYERS)
@@ -4876,7 +4976,67 @@ def phase_train_launcher(device):
             or not all(math.isfinite(x) for x in out["losses"]):
         raise AssertionError(f"train_launcher: {launches} against {rep}, "
                              f"{lines}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the one-process loop from the same seeds saves the same files
+    cfg = cut("qwen2.5-3b")
+    t0 = time.perf_counter()
+    with uncounted("extent_write"):
+        state = launcher_replay(cfg, 3, 2048, 2, plain_root, 2, device)
+    replay_s = time.perf_counter() - t0
+    if not same_checkpoint_files(root / "step_000000002",
+                                 plain_root / "step_000000002"):
+        raise AssertionError("train_launcher: the rank path's save differs "
+                             "from the one-process loop's")
+    like = meta_like(state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the launcher's checkpoint restored through the rank path, and by
+    # one process
+    integrity = RestoreIntegrity(**CKPT_INTEGRITY)
+    before = read_launches()
+    t0 = time.perf_counter()
+    dev = start_process_group(0, 1, local_rendezvous(), device)
+    try:
+        mesh = make_production_mesh(shape=(1, 1), device=dev)
+        api = get_model(cfg)
+        shards = data_shards(mesh, strategy_rules(mesh, "baseline"),
+                             api.param_axes(), api.param_shapes())
+        ck = Checkpointer(str(root), extent_policy=launch_train.moments_low,
+                          extent_backend="cuda", device=dev)
+        got, extra = ck.restore(like, integrity=integrity,
+                                dims=shards.state_dims())
+        rank_rep = ck.last_restore_report
+        rank_digest = state_digest(got)
+        del got
+    finally:
+        end_process_group()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_launches = {k: v - before[k] for k, v in read_launches().items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with uncounted("scrub"):
+        ck1 = Checkpointer(str(root), extent_policy=launch_train.moments_low,
+                           extent_backend="cuda", device=device)
+        got1, extra1 = ck1.restore(like, integrity=integrity)
+        one_digest = state_digest(got1)
+        del got1
+    one_rep = ck1.last_restore_report
+
+    def drop_times(r):
+        return {k: v for k, v in r.items() if k != "stage_s"}
+
+    if rank_digest != one_digest or extra != extra1 \
+            or drop_times(rank_rep) != drop_times(one_rep) \
+            or restore_launches["scrub"] != moments \
+            or rank_rep["leaves_checked"] != moments:
+        raise AssertionError(f"train_launcher: rank-path restore {rank_rep} "
+                             f"{restore_launches} against {one_rep}")
+    launches = {k: launches[k] + restore_launches[k] for k in launches}
     shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(plain_root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     before = read_launches()
@@ -4894,20 +5054,132 @@ def phase_train_launcher(device):
         raise AssertionError(f"train_launcher: example {ex} "
                              f"{ex_launches}")
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    emit({"phase": "train_launcher", "arch": cut("qwen2.5-3b").name,
+    emit({"phase": "train_launcher", "arch": cfg.name,
           "reduced": {"num_layers": f"{CKPT_LAYERS} of "
                                     f"{get_config('qwen2.5-3b').num_layers}"},
           "argv": "--compress --ckpt-every 2 --steps 3 --seq 2048 "
-                  "--batch 2", "lines": lines, "seconds": launcher_s,
+                  "--batch 2", "ranks": 1, "lines": lines,
+          "seconds": launcher_s,
           "save": {k: rep[k] for k in (
               "step", "leaves", "skipped_leaves", "bytes", "energy_pj",
               "bit_errors", "seconds", "stage_s")},
-          "save_launches": launches, "leaves_written": changed,
-          "moment_leaves": moments,
+          "save_equals_one_process_loop": True, "replay_s": replay_s,
+          "rank_path_restore": {**drop_times(rank_rep),
+                                "seconds": restore_s,
+                                "equals_one_process_restore": True,
+                                "launches": restore_launches},
+          "save_launches": {k: launches[k] - restore_launches[k]
+                            for k in launches},
+          "leaves_written": changed, "moment_leaves": moments,
           "example": {"argv": "--steps 60", "seconds": example_s,
                       "lines": ex, "launches": ex_launches},
           "ok": True})
     return {k: launches[k] + ex_launches[k] for k in launches}
+
+
+#: steps of each path in the train_mesh phase (batches 0, 1, ...)
+MESH_STEPS = 2
+
+
+def phase_train_mesh(device, plain_step_ms: float):
+    """The port's training over the data axis on one nccl rank: a group
+    of one on the card (``start_process_group``; its first collective,
+    which builds the communicator, timed apart), the (1, 1) production
+    mesh over it, the baseline rules' ``DataShards`` (the embed dimension
+    on ``data``; the norm scales and attention biases replicated), and
+    qwen2.5-3b at the train phase's shapes (36 layers, seq 4096, batch 2,
+    full remat, donated state) through ``make_sharded_train_step`` for
+    MESH_STEPS steps. The plain ``make_train_step`` steps from the same
+    seeded state over the same batches run first; after each step every
+    parameter and moment (``state_digest``) and the metrics must be equal
+    bit for bit. Each step's ms (CUDA events) and each path's peak
+    memory (beside what earlier phases left allocated) are printed with
+    the train phase's steady step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.device import (end_process_group, local_rendezvous,
+                                    start_process_group)
+    from repro_torch.models import get_model
+    from repro_torch.sharding import make_production_mesh
+    from repro_torch.sharding.rules import data_shards, default_rules
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (make_sharded_train_step,
+                                              make_train_step)
+    cfg = get_config("qwen2.5-3b")
+    api = get_model(cfg)
+    ocfg = opt.AdamWConfig(warmup_steps=2, total_steps=100)
+    dcfg = data_mod.DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+
+    def run(step, params):
+        """MESH_STEPS steps: (ms, digest, metrics) of each."""
+        state = opt.init(params)
+        out = []
+        for i in range(MESH_STEPS):
+            batch = data_mod.make_batch(dcfg, i, device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, state, m = step(params, state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            out.append((start.elapsed_time(end),
+                        state_digest((params, state)),
+                        {k: float(v) for k, v in m.items()}))
+        return out
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plain = run(make_train_step(api, ocfg, remat=True, donate=True),
+                api.init(0, device))
+    plain_peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dev = start_process_group(0, 1, local_rendezvous(), device)
+    try:
+        dist.all_reduce(torch.zeros(1, device=dev))
+        torch.cuda.synchronize()
+        group_s = time.perf_counter() - t0
+        mesh = make_production_mesh(shape=(1, 1), device=dev)
+        shards = data_shards(mesh, default_rules(mesh), api.param_axes(),
+                             api.param_shapes())
+        sharded = run(make_sharded_train_step(api, ocfg, shards, remat=True,
+                                              donate=True),
+                      api.init(0, dev, keep=shards.keep))
+    finally:
+        end_process_group()
+    phase_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    n_sharded = sum(shards.sharded())
+    for i, ((_, dp, mp), (_, ds, ms)) in enumerate(zip(plain, sharded)):
+        if ds != dp or ms != mp:
+            raise AssertionError(f"train_mesh: step {i} of the one-rank "
+                                 f"sharded path differs from the plain "
+                                 f"step: {ms} against {mp}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_mesh", "arch": cfg.name, "layers": cfg.num_layers,
+          "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "remat": "full",
+          "backend": "nccl", "ranks": 1, "mesh": mesh.shape,
+          "rules": "baseline", "sharded_leaves": n_sharded,
+          "replicated_leaves": len(shards.flat_dims) - n_sharded,
+          "step_ms": [x[0] for x in sharded],
+          "plain_step_ms": [x[0] for x in plain],
+          "train_phase_step_ms": plain_step_ms,
+          "group_start_s": group_s, "peak_mem_bytes": peak,
+          "plain_peak_mem_bytes": plain_peak,
+          "allocated_at_start_bytes": held,
+          "seconds": phase_s, "metrics": [x[2] for x in sharded],
+          "bit_identical_to_plain_steps": True,
+          "leaves_compared": len(sharded[0][1]),
+          "nvidia_smi": nvidia_smi_line(), "launches": launches,
+          "ok": True})
+    return launches
 
 
 #: the dry run's cell (of the reference's (16, 16) table) and where its
@@ -5128,6 +5400,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         train_launches[phase.__name__[len("phase_"):]] = phase(device)
     train_launches["train"], train_step_ms = train_launches["train"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches["train_mesh"] = phase_train_mesh(device, train_step_ms)
     gc.collect()
     torch.cuda.empty_cache()
     train_launches["tools"] = phase_tools(device, train_step_ms)

@@ -4,19 +4,25 @@
   python -m repro_torch.launch.train --arch qwen2.5-3b --reduced \
       --device cpu --steps 50 --ckpt-dir ck
   python -m repro_torch.launch.train --arch qwen2.5-3b --seq 4096 \
-      --batch 2 --steps 10                       # full width, on the card
+      --batch 2 --steps 10                       # full width, on the cards
 
-Runs on CUDA unless ``--device cpu``. ``--reduced`` takes the small
-float32 config on the one-device host mesh; without it the (data, model)
-mesh is built from the CUDA devices present, (1, 1) on one card (the
-port shards nothing: a mesh over more devices is refused). The loop
-wires every training piece together: the synthetic data pipeline,
-AdamW, error-feedback int8 gradients (``--compress``), asynchronous
-EXTENT checkpoints every ``--ckpt-every`` steps (the optimizer moments
-written at LOW through the device's backend, ``cuda`` on the card), and
-the heartbeat and straggler monitors. The step updates the parameters
-and the optimizer state in place, as the reference's donates them. It
-prints the reference's lines.
+Runs on CUDA unless ``--device cpu``. The launcher starts one rank a
+CUDA device present (rank 0 in this process, the others spawned with
+``torch.multiprocessing``), joined by an ``nccl`` group; ``--device cpu``
+runs one ``gloo`` rank. Every world size, 1 included, takes the same
+path: the ranks form a (data=N, model=1) mesh, each holds its slices of
+the parameters and moments under ``--rules`` (``baseline`` cuts the
+embed dimension, FSDP) and trains on its rows of each global batch, and
+rank 0 prints. ``--reduced`` takes the small float32 config. The dense
+family trains over more than one rank; the other families and
+``--compress`` run on one rank and are refused over more. The loop wires
+every training piece together: the synthetic data pipeline, AdamW,
+error-feedback int8 gradients (``--compress``), asynchronous EXTENT
+checkpoints every ``--ckpt-every`` steps (rank 0 gathers each leaf and
+writes the optimizer moments at LOW through its device's backend,
+``cuda`` on the card), and the heartbeat and straggler monitors. The
+step updates the parameters and the optimizer state in place, as the
+reference's donates them. It prints the reference's lines.
 """
 from __future__ import annotations
 
@@ -25,24 +31,26 @@ import time
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
+import torch.multiprocessing as mp
 
 from repro_torch.configs import get_config
 from repro_torch.core.priority import Priority
-from repro_torch.device import resolve_device
+from repro_torch.device import (end_process_group, local_rendezvous,
+                                resolve_device, start_process_group)
 from repro_torch.memory import default_backend
 from repro_torch.models import get_model
-from repro_torch.sharding import make_host_mesh, make_production_mesh
-from repro_torch.sharding.mesh import local_devices
-from repro_torch.sharding.rules import (make_constrain, strategy_rules,
-                                        tree_shardings)
+from repro_torch.sharding import make_production_mesh
+from repro_torch.sharding.rules import data_shards, strategy_rules
 from repro_torch.train import compression as comp
 from repro_torch.train import data as data_mod
 from repro_torch.train import optimizer as opt
 from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.fault_tolerance import (HeartbeatMonitor,
-                                               StragglerMonitor,
-                                               reshard_state)
-from repro_torch.train.train_step import make_train_step, value_and_grad
+                                               StragglerMonitor)
+from repro_torch.train.train_step import (check_data_parallel,
+                                          make_sharded_train_step,
+                                          sharded_value_and_grad)
 
 
 def moments_low(path, leaf) -> Priority:
@@ -52,16 +60,14 @@ def moments_low(path, leaf) -> Priority:
             else Priority.EXACT)
 
 
-def main(argv: Optional[list] = None) -> Dict[str, Any]:
-    """Run the loop; returns the losses, the last save's report (None
-    without ``--ckpt-dir``) and the straggler flags' count."""
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--reduced", action="store_true",
-                    help="small config + 1-device mesh")
+                    help="small float32 config")
     ap.add_argument("--device", default=None,
-                    help="torch device (default cuda; 'cpu' to ask for "
-                         "the CPU)")
+                    help="torch device (default cuda, one rank a device; "
+                         "'cpu' for one rank on the CPU)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--batch", type=int, default=8)
@@ -72,45 +78,96 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     ap.add_argument("--compress", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
-    args = ap.parse_args(argv)
+    return ap
 
+
+def main(argv: Optional[list] = None) -> Dict[str, Any]:
+    """Run the loop on one rank a device; returns rank 0's losses, last
+    save's report (None without ``--ckpt-dir``) and straggler flags'
+    count."""
+    args = _parser().parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-        mesh = make_host_mesh(dev)
-    else:
-        mesh = make_production_mesh(shape=(len(local_devices(dev)), 1),
-                                    device=dev)
+    world = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return launch(world, args, cfg)
+
+
+def launch(world: int, args: argparse.Namespace, cfg,
+           init_method: Optional[str] = None, timeout_s: float = 600.0
+           ) -> Dict[str, Any]:
+    """``world`` ranks of ``train_rank`` over ``cfg``: rank 0 here, ranks
+    1.. spawned (each binds its own device); rank 0's result. A family or
+    option not built over more than one rank raises before any starts;
+    a rank that fails ends the others."""
+    check_data_parallel(cfg, world, args.compress)
+    init_method = init_method or local_rendezvous()
+    rest = (world, init_method, args, cfg, timeout_s)
+    ctx = (mp.start_processes(_spawned_rank, args=rest, nprocs=world - 1,
+                              join=False, start_method="spawn")
+           if world > 1 else None)
+    try:
+        out = train_rank(0, *rest)
+        while ctx is not None and not ctx.join():
+            pass
+    finally:
+        if ctx is not None:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+    return out
+
+
+def _spawned_rank(i: int, *rest) -> None:
+    train_rank(i + 1, *rest)
+
+
+def train_rank(rank: int, world: int, init_method: str,
+               args: argparse.Namespace, cfg, timeout_s: float = 600.0
+               ) -> Dict[str, Any]:
+    """One rank of the loop: joins the group, trains, leaves it."""
+    dev = start_process_group(rank, world, init_method, args.device,
+                              timeout_s)
+    try:
+        return _train(rank, world, dev, args, cfg)
+    finally:
+        end_process_group()
+
+
+def _train(rank: int, world: int, dev: torch.device,
+           args: argparse.Namespace, cfg) -> Dict[str, Any]:
+    say = print if rank == 0 else (lambda *a, **k: None)
+    mesh = make_production_mesh(shape=(world, 1), device=dev)
     api = get_model(cfg)
-    rules = strategy_rules(mesh, args.rules)
-    constrain = make_constrain(mesh, rules)
+    shards = data_shards(mesh, strategy_rules(mesh, args.rules),
+                         api.param_axes(), api.param_shapes())
+    check_data_parallel(cfg, shards.n, args.compress)
     remat = {"full": True, "selective": "selective", "none": False}[
         args.remat]
-
-    params_sh = tree_shardings(mesh, rules, api.param_axes(),
-                               api.param_shapes())
-    params = reshard_state(api.init(0, dev), params_sh)
-    print(f"{cfg.name}: {api.num_params()/1e6:.1f}M params on "
-          f"{mesh.size} device(s)")
+    params = api.init(0, dev, keep=shards.keep)
+    say(f"{cfg.name}: {api.num_params()/1e6:.1f}M params on "
+        f"{mesh.size} device(s)")
 
     ocfg = opt.AdamWConfig(lr=args.lr, warmup_steps=10,
                            total_steps=args.steps)
     state = opt.init(params)
     ccfg = comp.CompressionConfig(enable=args.compress)
     ef = comp.init_state(params) if args.compress else None
+    sharded = shards.sharded()
 
     if args.compress:
         def step(params, state, ef, batch):
-            loss, _, grads = value_and_grad(api, params, batch,
-                                            constrain=constrain, remat=remat)
+            loss, _, grads = sharded_value_and_grad(api, params, batch,
+                                                    shards, remat=remat)
             grads, ef = comp.compress_grads(grads, ef, ccfg)
             params, state, om = opt.update(ocfg, grads, state, params,
-                                           donate=True)
+                                           donate=True, sharded=sharded)
             return params, state, ef, {"loss": loss, **om}
     else:
-        base = make_train_step(api, ocfg, constrain=constrain, remat=remat,
-                               donate=True)
+        base = make_sharded_train_step(api, ocfg, shards, remat=remat,
+                                       donate=True)
 
     ck = (Checkpointer(args.ckpt_dir, async_save=True,
                        extent_policy=moments_low,
@@ -119,30 +176,30 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     hb, sm = HeartbeatMonitor(), StragglerMonitor()
     it = data_mod.DataIterator(data_mod.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
-        global_batch=args.batch), device=dev)
+        global_batch=args.batch), device=dev, rank=rank, world=world)
 
     losses = []
     for i in range(args.steps):
         t0 = time.time()
-        hb.beat("host0")
+        hb.beat(f"rank{rank}")
         batch = next(it)
         if args.compress:
             params, state, ef, m = step(params, state, ef, batch)
         else:
             params, state, m = base(params, state, batch)
         losses.append(float(m["loss"]))
-        sm.record("host0", i, time.time() - t0)
+        sm.record(f"rank{rank}", i, time.time() - t0)
         if ck and i and i % args.ckpt_every == 0:
             ck.save(i, {"params": params, "opt": state},
-                    extra=it.state_dict())
+                    extra=it.state_dict(), dims=shards.state_dims())
         if i % 10 == 0:
-            print(f"step {i:4d} loss={losses[-1]:.4f} "
-                  f"lr={float(m['lr']):.2e} "
-                  f"gnorm={float(m['grad_norm']):.3f}")
+            say(f"step {i:4d} loss={losses[-1]:.4f} "
+                f"lr={float(m['lr']):.2e} "
+                f"gnorm={float(m['grad_norm']):.3f}")
     if ck:
         ck.wait()
-    print(f"done: loss {np.mean(losses[:5]):.4f} -> "
-          f"{np.mean(losses[-5:]):.4f}; stragglers={len(sm.flags)}")
+    say(f"done: loss {np.mean(losses[:5]):.4f} -> "
+        f"{np.mean(losses[-5:]):.4f}; stragglers={len(sm.flags)}")
     return {"losses": losses,
             "save_report": ck.last_save_report if ck else None,
             "stragglers": len(sm.flags)}

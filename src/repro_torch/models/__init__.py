@@ -20,8 +20,9 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import rglru, ssm, transformer, vlm, whisper
 from repro_torch.models.layers import (init_from_descs, no_constrain,
-                                       param_count, shapes_from_descs,
-                                       specs_from_descs, unembed)
+                                       no_gather, param_count,
+                                       shapes_from_descs, specs_from_descs,
+                                       unembed)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -29,6 +30,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 #: family -> the module serving it
 _FAMILIES = {"dense": transformer, "moe": transformer, "hybrid": rglru,
              "ssm": ssm, "vlm": vlm, "audio": whisper}
+#: families whose training forward gathers data-sharded leaves
+GATHER_FAMILIES = ("dense", "moe")
 #: families whose prefill takes the whole batch (multimodal leaves)
 _BATCH_PREFILL = ("vlm", "audio")
 
@@ -60,9 +63,11 @@ class ModelApi:
     def descs(self):
         return self._module.descs(self.cfg)
 
-    def init(self, seed: int, device) -> Dict[str, Any]:
+    def init(self, seed: int, device, keep=None) -> Dict[str, Any]:
+        """The seeded parameters; ``keep(i, leaf)``: what is kept of leaf
+        ``i`` (``init_from_descs``)."""
         return init_from_descs(seed, self.descs(), self.param_dtype,
-                               torch.device(device))
+                               torch.device(device), keep)
 
     def param_axes(self):
         return specs_from_descs(self.descs())
@@ -85,15 +90,22 @@ class ModelApi:
                 + per_expert * cfg.experts_per_token)
 
     def forward_hidden(self, params, batch: Dict[str, torch.Tensor], *,
-                       remat=True, constrain=no_constrain):
+                       remat=True, constrain=no_constrain, gather=no_gather):
         """(hidden states (B, S_total, D), aux dict) of a training batch;
-        the dense and moe families' aux holds ``lb_loss``."""
+        the dense and moe families' aux holds ``lb_loss``. A ``gather``
+        hook (over a data-sharded tree) reaches the transformer families'
+        forward, and no other family takes one."""
+        kw = dict(remat=remat, constrain=constrain)
+        if gather is not no_gather:
+            if self.cfg.family not in GATHER_FAMILIES:
+                raise NotImplementedError(
+                    f"the {self.cfg.family} family's forward gathers no "
+                    "data-sharded leaves")
+            kw["gather"] = gather
         if self.cfg.family in _BATCH_PREFILL:
-            return self._module.hidden_forward(params, batch, self.cfg,
-                                               remat=remat,
-                                               constrain=constrain)
+            return self._module.hidden_forward(params, batch, self.cfg, **kw)
         return self._module.hidden_forward(params, batch["tokens"], self.cfg,
-                                           remat=remat, constrain=constrain)
+                                           **kw)
 
     def logits(self, params, h: torch.Tensor) -> torch.Tensor:
         """float32 logits of hidden states (B, S, D)."""

@@ -8,16 +8,21 @@ scale rule (std = scale / sqrt(fan_in)); its numbers differ from JAX's.
 
 Training runs its layer stacks through ``unstack`` (one ``unbind`` per
 stacked leaf, whose backward stacks the L per-layer gradients once) and
-its remat units through ``remat_wrap``.
+its remat units through ``remat_wrap``. Over the ``data`` axis of a
+process group a leaf may be held as a slice of one dimension; the
+model's ``gather(name, subtree)`` hook (``no_gather`` on one process)
+makes it whole where it is used, through ``GatherSlice``, whose backward
+reduce-scatters the gradient back onto the slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
@@ -36,10 +41,15 @@ class ParamDesc:
 
 
 def init_from_descs(seed: int, descs: Any, dtype: torch.dtype,
-                    device: torch.device) -> Any:
+                    device: torch.device,
+                    keep: Optional[Callable[[int, torch.Tensor],
+                                            torch.Tensor]] = None) -> Any:
     """Materialize a descriptor tree on ``device``: norm scales 1 and
     biases 0 (as the reference initialises them), weights normal * std,
-    drawn in float32 a bounded chunk at a time."""
+    drawn in float32 a bounded chunk at a time. ``keep(i, leaf)`` gives
+    what is kept of leaf ``i`` (a rank's slice), so no more than one
+    whole leaf exists at a time."""
+    keep = keep or (lambda i, w: w)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     flat, tdef = T.flatten_with_def(descs)
@@ -47,7 +57,8 @@ def init_from_descs(seed: int, descs: Any, dtype: torch.dtype,
     for _, d in flat:
         if d.axes and d.axes[-1] in ("norm_scale", "bias"):
             fill = 1.0 if d.axes[-1] == "norm_scale" else 0.0
-            out.append(torch.full(d.shape, fill, dtype=dtype, device=device))
+            out.append(keep(len(out), torch.full(d.shape, fill, dtype=dtype,
+                                                 device=device)))
             continue
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         std = d.scale / math.sqrt(max(1, fan_in))
@@ -58,7 +69,7 @@ def init_from_descs(seed: int, descs: Any, dtype: torch.dtype,
             chunk.copy_(torch.randn(chunk.shape, generator=gen,
                                     device=device, dtype=torch.float32)
                         * std)
-        out.append(w)
+        out.append(keep(len(out), w))
     return tdef.unflatten(out)
 
 
@@ -70,6 +81,64 @@ def no_constrain(t, spec):
     """The sharding constraint of a one-device program: the identity
     (``sharding.rules.make_constrain`` returns it)."""
     return t
+
+
+def no_gather(name: str, tree: Any) -> Any:
+    """The parameter gather of a one-process program: the identity."""
+    return tree
+
+
+#: the collectives under their current names (older torch has only the
+#: ``*_tensor`` ones)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def all_gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The group's slices of one tensor, rank ``r``'s ``x`` at block
+    ``r`` of dimension ``dim``: a new contiguous tensor."""
+    n = dist.get_world_size()
+    out = x.new_empty(n * x.numel())
+    _ALL_GATHER(out, x.reshape(-1))
+    shape = x.shape[:dim] + (n * x.shape[dim],) + x.shape[dim + 1:]
+    return out.view((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
+
+
+def reduce_scatter_dim(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over the group of ``g`` (whole on every rank), cut to this
+    rank's block of dimension ``dim``."""
+    n = dist.get_world_size()
+    parts = g.reshape(g.shape[:dim] + (n, g.shape[dim] // n)
+                      + g.shape[dim + 1:]).movedim(dim, 0)
+    out = g.new_empty(parts.shape[1:])
+    _REDUCE_SCATTER(out.view(-1), parts.reshape(-1))
+    return out
+
+
+class GatherSlice(torch.autograd.Function):
+    """Forward: all-gather a slice along ``dim``; backward: reduce-scatter
+    (sum) the whole gradient onto the slice."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int):
+        ctx.dim = dim
+        return all_gather_dim(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dim), None
+
+
+def gather_slices(tree: Any, dims: Any, lead: int = 0) -> Any:
+    """Each leaf of ``tree`` whole: a leaf whose entry in ``dims`` (a tree
+    of the same structure) is a dimension is gathered along it less
+    ``lead`` (1 for the layers of a stack ``unstack`` took apart), a
+    leaf whose entry is None passes through."""
+    return T.tree_map(
+        lambda x, d: x if d is None else GatherSlice.apply(x, d - lead),
+        tree, dims)
 
 
 def specs_from_descs(descs: Any) -> Any:

@@ -22,8 +22,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamDesc, embed_descs, embed_tokens,
                                        layer_at, mlp_apply, mlp_descs,
-                                       no_constrain, remat_wrap, rms_norm,
-                                       unembed, unstack)
+                                       no_constrain, no_gather, remat_wrap,
+                                       rms_norm, unembed, unstack)
 
 
 def _groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -99,13 +99,16 @@ def _block(h, lp, cfg: ModelConfig, attend, constrain=no_constrain):
 
 def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                    extra_embeds: Optional[torch.Tensor] = None, remat=True,
-                   constrain=no_constrain
+                   constrain=no_constrain, gather=no_gather
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training forward over the whole sequence: (final-norm hidden
     states (B, S_total, D), {"lb_loss": the MoE load-balancing losses
     summed over the layers in float32, 0 for a dense model}).
-    ``extra_embeds`` (B,N,D) go ahead of the token embeddings."""
-    h = embed_tokens(params["embed"], tokens, cfg)
+    ``extra_embeds`` (B,N,D) go ahead of the token embeddings.
+    ``gather(name, subtree)`` makes data-sharded leaves whole: ``embed``
+    and ``final_norm`` around the stack, each layer's leaves inside its
+    remat unit, so the recompute gathers them again."""
+    h = embed_tokens(gather("embed", params["embed"]), tokens, cfg)
     if extra_embeds is not None:
         h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
     B, S, _ = h.shape
@@ -117,7 +120,7 @@ def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
     def group_body(h, lb, g: int):
         for s in range(plen):
-            lp = layers[g * plen + s]
+            lp = gather("layers", layers[g * plen + s])
 
             def attend(x, lp=lp, w=windows[s]):
                 q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions)
@@ -135,7 +138,8 @@ def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
     for g in range(n_g):
         h, lb = body(h, lb, g)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), {"lb_loss": lb}
+    return (rms_norm(h, gather("final_norm", params["final_norm"]),
+                     cfg.norm_eps), {"lb_loss": lb})
 
 
 def logits_fn(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -22,12 +22,14 @@ On one H100 every die folds onto the one card: ``shard_slots`` is an
 identity, as the reference's placement is on a one-device host.
 
 ``Mesh`` stands in for ``jax.sharding.Mesh``: an array of devices (or of
-placeholder ids, for the rules' arithmetic) with axis names. The
-training meshes (``make_production_mesh``, ``make_host_mesh``) are
-built from the CUDA devices present, or from the CPU when it is asked
-for; on one H100 they fold onto the card as (1, 1). The port runs no
-program over more than one device: ``rules.make_constrain`` refuses a
-mesh that has more than one.
+placeholder ids, for the rules' arithmetic) with axis names, and the
+position of this process in it. The training mesh
+(``make_production_mesh``) lays the ranks of the process group
+(``repro_torch.device.start_process_group``) out as (data, model), one
+rank a device; ``make_host_mesh`` is the one-device mesh. The port
+trains over the ``data`` axis (``rules.make_constrain`` takes any
+(data=N, model=1) mesh); a ``model`` axis over more than one device is
+refused there.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import rank_and_world, resolve_device
 
 #: the named mesh axis the slot dimension is sharded over
 DIE_AXIS = "die"
@@ -50,10 +52,14 @@ class Mesh:
     name in ``axis_names``."""
     devices: np.ndarray
     axis_names: Tuple[str, ...]
+    #: this process's flat index into ``devices`` (its rank)
+    rank: int = 0
 
     def __post_init__(self):
         assert self.devices.ndim == len(self.axis_names), (
             self.devices.shape, self.axis_names)
+        assert 0 <= self.rank < self.devices.size, (self.rank,
+                                                    self.devices.shape)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -68,18 +74,14 @@ class Mesh:
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A spec (one entry per array axis: a mesh axis name, a tuple of
-    them, or None) over a mesh; ``device`` is where a one-device mesh
-    places the array."""
+    them, or None) over a mesh; ``device`` is where this process places
+    its part of the array."""
     mesh: Mesh
     spec: Tuple[Any, ...]
 
     @property
     def device(self) -> torch.device:
-        if self.mesh.size != 1:
-            raise NotImplementedError(
-                f"placement over a {self.mesh.shape} mesh: the port runs "
-                "on one device")
-        return torch.device(self.mesh.devices.flat[0])
+        return torch.device(self.mesh.devices.flat[self.mesh.rank])
 
 
 def device_grid(devices: Sequence, shape: Tuple[int, ...]) -> np.ndarray:
@@ -205,24 +207,36 @@ def uniform(values: Sequence) -> bool:
 # training meshes
 
 
+def group_devices(device=None) -> List[torch.device]:
+    """One device a rank of the process group, in rank order: rank ``r``
+    on ``cuda:r``, or every rank on the CPU. Without a group the process
+    is a world of one."""
+    dev = resolve_device(device)
+    _, world = rank_and_world()
+    if dev.type == "cuda":
+        return [torch.device("cuda", r) for r in range(world)]
+    return [dev] * world
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          shape: Optional[Tuple[int, ...]] = None,
                          device=None) -> Mesh:
     """The reference's pod mesh: (data=16, model=16), multi-pod (pod=2,
     16, 16); ``shape`` overrides the intra-pod (data, model) split. Over
-    the devices ``local_devices(device)`` gives; asking for more than
-    exist raises."""
+    the ranks of the process group (``group_devices``), this process at
+    its rank; a shape that does not cover the group exactly raises."""
     if shape is None:
         shape = (2, 16, 16) if multi_pod else (16, 16)
     elif multi_pod:
         shape = (2,) + tuple(shape)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = int(np.prod(shape))
-    devices = local_devices(device)
-    if len(devices) < n:
+    devices = group_devices(device)
+    if len(devices) != n:
         raise RuntimeError(f"need {n} devices for the production mesh, "
-                           f"found {len(devices)}")
-    return Mesh(device_grid(devices[:n], tuple(shape)), axes)
+                           f"found {len(devices)} in the process group")
+    rank, _ = rank_and_world()
+    return Mesh(device_grid(devices, tuple(shape)), axes, rank)
 
 
 def make_host_mesh(device=None) -> Mesh:

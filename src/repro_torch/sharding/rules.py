@@ -14,18 +14,30 @@ Strategy (the reference's):
   * expert              -> model             expert parallel
   * exp_cap             -> data              MoE capacity over DP
 
-The port runs on one device: ``make_constrain`` is the identity on a
-mesh whose every axis has size 1 and refuses any other, so a program
-laid out for several devices cannot run silently unsharded.
+The port trains over the ``data`` axis of a (data=N, model=1) mesh,
+one process a device (``DataShards``): each leaf keeps a 1/N block of
+the one dimension its spec puts on ``data`` (``data_dim``; the embed
+dimension under ``baseline``), or all of itself where the spec puts
+nothing there (norm scales, biases, every dense leaf under
+``serve_tp_only`` and ``serve_moe_2d``, a dimension the axis does not
+divide). ``make_constrain`` is the identity there and refuses a mesh
+whose ``model`` axis spans more than one device: tensor parallelism is
+a later slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
-from repro_torch.models.layers import no_constrain
+from repro_torch import tree as T
+from repro_torch.device import rank_and_world
+from repro_torch.models.layers import gather_slices, no_constrain
 from repro_torch.sharding.mesh import Mesh, NamedSharding
+from repro_torch.train.optimizer import OptState
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -108,13 +120,104 @@ def spec_for(mesh: Mesh, rules: Dict[str, Axis],
 
 def make_constrain(mesh: Mesh, rules: Dict[str, Axis]):
     """``constrain(t, logical_axes)`` for the model code: the identity on
-    a mesh of one device (every axis size 1). A mesh over more devices
-    raises here: the port has no multi-device sharding."""
-    if mesh.size != 1:
+    a (data=N, model=1) mesh, where each rank's activations are its own
+    batch rows and each weight is made whole where it is used
+    (``DataShards.gather``). A mesh with another axis over more than one
+    device raises."""
+    wide = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
+    if wide:
         raise NotImplementedError(
-            f"sharding over a {mesh.shape} mesh of {mesh.size} devices: "
-            "the port runs on one device")
+            f"a {mesh.shape} mesh: the port trains over the data axis "
+            f"only; tensor parallelism over {sorted(wide)} is a later "
+            "slice")
     return no_constrain
+
+
+def data_dim(spec: Sequence[Axis]) -> Optional[int]:
+    """The one dimension ``spec`` puts on the ``data`` axis, or None."""
+    hits = [i for i, e in enumerate(spec) if e == "data"
+            or (isinstance(e, tuple) and "data" in e)]
+    if len(hits) > 1:
+        raise ValueError(f"{spec} shards {len(hits)} dimensions over data")
+    return hits[0] if hits else None
+
+
+@dataclasses.dataclass
+class DataShards:
+    """A params tree over the ``data`` axis of the running process
+    group. ``dims`` is the params tree's structure with, at each leaf,
+    the dimension of which this rank holds block ``mesh.rank`` of N, or
+    None where every rank holds the whole leaf; ``flat_dims`` the same
+    in leaf order."""
+    mesh: Mesh
+    dims: Any
+    flat_dims: List[Optional[int]]
+
+    def __post_init__(self):
+        make_constrain(self.mesh, {})
+        rank, world = rank_and_world()
+        if not dist.is_initialized() or world != self.mesh.size \
+                or rank != self.mesh.rank:
+            raise RuntimeError(
+                f"a {self.mesh.shape} mesh at rank {self.mesh.rank} needs "
+                f"a process group of {self.mesh.size} ranks; this process "
+                f"is rank {rank} of {world}")
+
+    @property
+    def n(self) -> int:
+        return self.mesh.shape["data"]
+
+    def sharded(self) -> List[bool]:
+        """Per leaf in leaf order: whether it is held as a slice."""
+        return [d is not None for d in self.flat_dims]
+
+    def keep(self, i: int, leaf: torch.Tensor) -> torch.Tensor:
+        """This rank's block of leaf ``i`` (a copy, so the whole leaf can
+        go), or the leaf itself when replicated or on one rank: the
+        ``keep`` of ``ModelApi.init``."""
+        d = self.flat_dims[i]
+        if d is None or self.n == 1:
+            return leaf
+        return leaf.chunk(self.n, d)[self.mesh.rank].clone()
+
+    def gather(self, name: str, tree: Any) -> Any:
+        """The model's gather hook: the subtree ``params[name]`` whole
+        (for ``layers``, one layer of the stack ``unstack`` took
+        apart)."""
+        return gather_slices(tree, self.dims[name],
+                             1 if name == "layers" else 0)
+
+    def sync_grads(self, grads: Any) -> None:
+        """Sum the replicated leaves' gradients over the ranks, in place
+        (the sharded leaves' sums come from ``GatherSlice``'s
+        reduce-scatter)."""
+        for g, sh in zip(T.leaves(grads), self.sharded()):
+            if not sh:
+                dist.all_reduce(g)
+
+    def state_dims(self) -> Dict[str, Any]:
+        """``dims`` over a ``{"params", "opt"}`` checkpoint state: the
+        moments lie as their parameters, the step is whole."""
+        return {"params": self.dims,
+                "opt": OptState(None, self.dims, self.dims)}
+
+
+def data_dims(mesh: Mesh, rules: Dict[str, Axis], axes_tree: Any,
+              shapes_tree: Any) -> Tuple[Any, List[Optional[int]]]:
+    """Each leaf's ``data_dim`` under ``rules``: (the params tree's
+    structure holding them, the same in leaf order)."""
+    flat, tdef = T.flatten_with_def(tree_shardings(mesh, rules, axes_tree,
+                                                   shapes_tree))
+    dims = [data_dim(s.spec) for _, s in flat]
+    return tdef.unflatten(dims), dims
+
+
+def data_shards(mesh: Mesh, rules: Dict[str, Axis], axes_tree: Any,
+                shapes_tree: Any) -> DataShards:
+    """The ``DataShards`` of a params tree (its logical axes and shapes)
+    under ``rules``, on this process's rank of the group."""
+    return DataShards(mesh, *data_dims(mesh, rules, axes_tree,
+                                       shapes_tree))
 
 
 def _is_axes(x: Any) -> bool:

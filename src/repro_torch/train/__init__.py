@@ -2,7 +2,9 @@
 stores in NVM.
 
   * ``train_step``  — chunked cross-entropy (one checkpoint a sequence
-                      chunk), gradients by autograd, ``make_train_step``;
+                      chunk), gradients by autograd, ``make_train_step``
+                      (one process) and ``make_sharded_train_step`` (a
+                      rank of the data axis of a process group);
   * ``data``        — the synthetic (seed, step) batches, bit for bit the
                       reference's, drawn on the device;
   * ``accumulate``  — microbatched float32 gradient accumulation, the

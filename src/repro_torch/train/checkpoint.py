@@ -12,7 +12,11 @@ Durability:
     worker thread commits it; ``wait()`` (and the next ``save``) joins
     it, and an exception raised in the commit surfaces there;
   * ``restore(device=)`` lays each leaf onto one device or onto a
-    same-structure tree of devices.
+    same-structure tree of devices;
+  * over the data axis of a process group (``dims=``), rank 0 gathers
+    each leaf whole and writes what one process writes, and on restore
+    reads and checks each leaf and hands every rank its slice, as the
+    reference's checkpointer gathers each leaf to the host.
 
 EXTENT: with an ``extent_policy(path, leaf)``, every floating-point leaf
 (numpy kind ``f``: float16/32/64, not bfloat16, as in the reference) is
@@ -56,12 +60,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import rng
 from repro_torch import tree as T
 from repro_torch.core.priority import Priority, keystr
 from repro_torch.device import resolve_device
 from repro_torch.memory import rng_streams
+from repro_torch.models.layers import all_gather_dim
 
 COMPLETE = "COMPLETE"
 _STEP_RE = re.compile(r"^step_(\d{9})$")
@@ -94,6 +100,32 @@ def _to_host(x: Any) -> Tuple[np.ndarray, str]:
         a = x.view(torch.int16).to("cpu", copy=True).numpy()
         return a.view(np.uint16), "bfloat16"
     return x.to("cpu", copy=True).numpy(), _dtype_name(x.dtype)
+
+
+def _broadcast_object(obj: Any) -> Any:
+    """Rank 0's ``obj`` on every rank of the process group."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _hand_out(leaf: Optional[torch.Tensor], like: Any, dim: Optional[int],
+              device: torch.device) -> torch.Tensor:
+    """Rank 0's whole ``leaf`` to every rank: its block of ``dim`` (the
+    shape of ``like``, this rank's slice), or all of it where ``dim`` is
+    None."""
+    out = torch.empty(tuple(like.shape), dtype=like.dtype, device=device)
+    root = dist.get_rank() == 0
+    if dim is None:
+        if root:
+            out.copy_(leaf)
+        dist.broadcast(out, src=0)
+        return out
+    parts = ([c.contiguous() for c in leaf.chunk(dist.get_world_size(),
+                                                   dim)]
+             if root else None)
+    dist.scatter(out, parts, src=0)
+    return out
 
 
 def _from_host(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
@@ -140,13 +172,31 @@ class Checkpointer:
         self.last_restore_report: Dict[str, Any] = {}
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, state: Any, extra: Optional[Dict] = None):
+    def save(self, step: int, state: Any, extra: Optional[Dict] = None,
+             dims: Any = None):
         """Snapshot ``state`` to host memory now; commit it to disk in the
-        worker thread (``async_save``) or here."""
+        worker thread (``async_save``) or here.
+
+        ``dims`` (``DataShards.state_dims()``): ``state`` holds this
+        rank's slices over the process group's data axis. Each sliced
+        leaf is gathered whole, one at a time, every rank taking part;
+        rank 0 snapshots and commits them, so the files are a one-process
+        save's of the whole state, and the other ranks return."""
         self.wait()
         t0 = time.perf_counter()
-        flat, _ = _leaf_paths(state)
-        host = [(p, *_to_host(x)) for p, x in flat]
+        flat, tdef = _leaf_paths(state)
+        if dims is None:
+            host = [(p, *_to_host(x)) for p, x in flat]
+        else:
+            root = dist.get_rank() == 0
+            host = []
+            for (p, x), d in zip(flat, tdef.flatten_up_to(dims)):
+                if d is not None:
+                    x = all_gather_dim(x, d)
+                if root:
+                    host.append((p, *_to_host(x)))
+            if not root:
+                return
         snapshot_s = time.perf_counter() - t0
         if self.async_save:
             self._pending = self._pool.submit(
@@ -263,8 +313,8 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, state_like: Any, step: Optional[int] = None,
-                device: Any = None,
-                integrity: Optional[Any] = None) -> Tuple[Any, Dict]:
+                device: Any = None, integrity: Optional[Any] = None,
+                dims: Any = None) -> Tuple[Any, Dict]:
         """Load the newest COMPLETE checkpoint (or ``step``) into the
         structure of ``state_like`` (tensors, ``meta`` ones included: only
         dtypes are read). ``device``: one device or a same-structure tree
@@ -277,14 +327,24 @@ class Checkpointer:
         re-write energy and the damage left land in
         ``last_restore_report``. Without it, and for every leaf outside
         ``extent_policy``, the restore is bit-identical to what was
-        saved."""
-        step = self.latest_step() if step is None else step
+        saved.
+
+        ``dims`` (``DataShards.state_dims()``): ``state_like`` is this
+        rank's slices over the process group's data axis (their shapes
+        are read too). Rank 0 reads
+        and checks each leaf whole, as one process would, and hands each
+        rank its slice (a replicated leaf whole) before the next leaf;
+        every rank returns the same ``extra`` and report."""
+        root = dims is None or dist.get_rank() == 0
+        step = self.latest_step() if step is None and root else step
+        if dims is not None:
+            step = _broadcast_object(step)
         if step is None:
             raise FileNotFoundError(f"no COMPLETE checkpoint under "
                                     f"{self.directory}")
         d = Path(self.directory) / f"step_{step:09d}"
-        manifest = json.loads((d / "manifest.json").read_text())
-        by_path = {e["path"]: e for e in manifest["leaves"]}
+        manifest = (json.loads((d / "manifest.json").read_text()) if root
+                    else None)
         flat, tdef = _leaf_paths(state_like)
         if device is None or isinstance(device, (str, torch.device)):
             devs = [resolve_device(device or self.device)] * len(flat)
@@ -298,26 +358,35 @@ class Checkpointer:
         # disjoint from save(step + 1)'s PRNGKey(extent_seed + step + 1)
         key = rng.fold_in(rng.PRNGKey(self.extent_seed),
                           rng_streams.CHECKPOINT_RESTORE_OFFSET + step)
+        by_path = {e["path"]: e for e in manifest["leaves"]} if root else {}
+        slice_dims = (tdef.flatten_up_to(dims) if dims is not None
+                      else [None] * len(flat))
         out = []
-        for i, ((path, like), dev) in enumerate(zip(flat, devs)):
-            e = by_path[path]
-            t = time.perf_counter()
-            arr = np.load(d / e["file"])
-            stage["np_load"] += time.perf_counter() - t
-            t = time.perf_counter()
-            leaf = _from_host(arr, like.dtype).to(dev)
-            self._sync(dev)
-            stage["to_device"] += time.perf_counter() - t
-            if check and like.dtype in _NP_FLOATS:
-                level = Priority.coerce(self.extent_policy((path,), like))
-                if level != Priority.EXACT:
-                    leaf, st, c = self._integrity(key, i, leaf, level,
-                                                  integrity, stage)
-                    if st is not None:
-                        acc = st if acc is None else acc + st
-                    counts = c if counts is None else counts + c.to(
-                        counts.device)
-                    report["leaves_checked"] += 1
+        for i, ((path, like), dev, sd) in enumerate(zip(flat, devs,
+                                                         slice_dims)):
+            leaf = None
+            if root:
+                e = by_path[path]
+                t = time.perf_counter()
+                arr = np.load(d / e["file"])
+                stage["np_load"] += time.perf_counter() - t
+                t = time.perf_counter()
+                leaf = _from_host(arr, like.dtype).to(dev)
+                self._sync(dev)
+                stage["to_device"] += time.perf_counter() - t
+                if check and like.dtype in _NP_FLOATS:
+                    level = Priority.coerce(self.extent_policy((path,),
+                                                               like))
+                    if level != Priority.EXACT:
+                        leaf, st, c = self._integrity(key, i, leaf, level,
+                                                      integrity, stage)
+                        if st is not None:
+                            acc = st if acc is None else acc + st
+                        counts = c if counts is None else counts + c.to(
+                            counts.device)
+                        report["leaves_checked"] += 1
+            if dims is not None:
+                leaf = _hand_out(leaf, like, sd, dev)
             out.append(leaf)
         if report["leaves_checked"]:
             h = counts.tolist()
@@ -326,8 +395,11 @@ class Checkpointer:
             if acc is not None:
                 report["scrub_energy_pj"] = acc.host_dict()["energy_pj"]
         report["stage_s"] = stage
+        extra = manifest["extra"] if root else None
+        if dims is not None:
+            extra, report = _broadcast_object((extra, report))
         self.last_restore_report = report
-        return tdef.unflatten(out), manifest["extra"]
+        return tdef.unflatten(out), extra
 
     def _integrity(self, key, i: int, leaf: torch.Tensor, level: Priority,
                    integrity, stage: Dict[str, float]):

@@ -66,18 +66,36 @@ def make_batch(cfg: DataConfig, step: int, device=None
     return {"tokens": tokens, "labels": labels}
 
 
+def rank_rows(batch: Dict[str, torch.Tensor], rank: int, world: int
+              ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s rows ``[r B / N, (r + 1) B / N)`` of a global batch
+    over a data axis of ``world`` ranks; every row where ``world`` does
+    not divide the batch (replicated, as ``spec_for`` replicates what
+    does not divide)."""
+    B = next(iter(batch.values())).shape[0]
+    if world == 1 or B % world:
+        return batch
+    n = B // world
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+
 @dataclasses.dataclass
 class DataIterator:
-    """Stateful view over ``make_batch`` with a checkpointable cursor."""
+    """Stateful view over ``make_batch`` with a checkpointable cursor;
+    over a data axis of ``world`` ranks each draws the global batch and
+    keeps its ``rank_rows``."""
     cfg: DataConfig
     step: int = 0
     device: Optional[torch.device] = None
+    rank: int = 0
+    world: int = 1
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
-        b = make_batch(self.cfg, self.step, self.device)
+        b = rank_rows(make_batch(self.cfg, self.step, self.device),
+                      self.rank, self.world)
         self.step += 1
         return b
 

@@ -118,9 +118,10 @@ def remesh_report(old_n: int, new_mesh: Mesh) -> Dict[str, Any]:
 
 def reshard_state(state: Any, shardings: Any) -> Any:
     """Re-lay a tree of tensors onto a same-structure tree of shardings:
-    each leaf ``.to()`` its sharding's device (one device per mesh in the
-    port). With checkpointed state this composes as
-    ``ckpt.restore(state_like, device=...)``."""
+    each leaf whole ``.to()`` its sharding's device (this rank's; a
+    rank's slices over the data axis come from
+    ``sharding.rules.DataShards.keep``). With checkpointed state this
+    composes as ``ckpt.restore(state_like, device=...)``."""
     flat, tdef = T.flatten_with_def(state)
     return tdef.unflatten([x.to(s.device) for (_, x), s in zip(
         flat, tdef.flatten_up_to(shardings))])

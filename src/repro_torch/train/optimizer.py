@@ -16,9 +16,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
 
@@ -62,9 +63,23 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in T.leaves(tree)))
+def global_norm(tree: Any, sharded: Optional[List[bool]] = None
+                ) -> torch.Tensor:
+    """The float32 L2 norm over every leaf. With ``sharded`` (per leaf:
+    held as a slice over the process group's data axis) it is the whole
+    tree's: the per-leaf sums of squares are summed over the ranks, a
+    replicated leaf's taken from rank 0 alone, then added in leaf order
+    as on one process (an inf stays inf)."""
+    sq = [torch.sum(torch.square(g.to(torch.float32)))
+          for g in T.leaves(tree)]
+    if sharded is not None and sq:
+        v = torch.stack(sq)
+        if dist.get_rank() != 0:
+            keep = torch.tensor(sharded, device=v.device)
+            v = torch.where(keep, v, torch.zeros_like(v))
+        dist.all_reduce(v)
+        sq = list(v.unbind())
+    return torch.sqrt(sum(sq))
 
 
 #: elements of a leaf updated at once
@@ -72,13 +87,14 @@ UPDATE_SLICE = 1 << 26
 
 
 def update(cfg: AdamWConfig, grads: Any, state: OptState, params: Any, *,
-           donate: bool = False
+           donate: bool = False, sharded: Optional[List[bool]] = None
            ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step: (new params, new state, {"grad_norm", "lr"}). With
     ``donate`` the new values overwrite ``params``' and ``state``'s
     tensors (which the result then holds); the caller must not read the
-    old values afterwards."""
-    gnorm = global_norm(grads)
+    old values afterwards. ``sharded``: the leaves are a rank's slices
+    (``global_norm``); the update stays elementwise on them."""
+    gnorm = global_norm(grads, sharded)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

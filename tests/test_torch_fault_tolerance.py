@@ -4,8 +4,9 @@ training sharding rules (``repro_torch.sharding``), twins of
 spec tests, with every spec equal to the reference's ``PartitionSpec``
 entries for every architecture: on the one-device host mesh and on a
 (16, 16) mesh of placeholder ids, where the divisibility fallback
-decides. ``make_constrain`` is the identity on one device and refuses a
-mesh over two."""
+decides. ``make_constrain`` is the identity on one device and on a
+(data=N, model=1) mesh, and refuses a mesh whose model axis spans two
+devices."""
 import jax
 import numpy as np
 import pytest
@@ -179,8 +180,9 @@ def test_constrain_is_identity_on_host_mesh(meshes):
 
 
 def test_constrain_refuses_a_mesh_over_two_devices():
-    mesh = Mesh(device_grid([CPU, CPU], (2, 1)), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="one device"):
+    """Two devices on the model axis: tensor parallelism is not built."""
+    mesh = Mesh(device_grid([CPU, CPU], (1, 2)), ("data", "model"))
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
         make_constrain(mesh, default_rules(mesh))
 
 
