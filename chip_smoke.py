@@ -2421,8 +2421,8 @@ def moe_drops():
     saved = moe.moe_apply
     seen = {"prefill": [], "decode": []}
 
-    def spy(p, x, cfg):
-        y, aux = saved(p, x, cfg)
+    def spy(p, x, cfg, *group):
+        y, aux = saved(p, x, cfg, *group)
         seen["prefill" if x.shape[1] > 1 else "decode"].append(
             aux["dropped"])
         return y, aux
@@ -5077,8 +5077,68 @@ def phase_train_launcher(device):
     return {k: launches[k] + ex_launches[k] for k in launches}
 
 
-#: steps of each path in the train_mesh phase (batches 0, 1, ...)
+#: steps of each path in the train_mesh phases (batches 0, 1, ...)
 MESH_STEPS = 2
+#: qwen2.5-3b's depth in the train_mesh phase: 12 of 36 layers since
+#: train_mesh_families carries the rank path at full depth
+#: (recurrentgemma-2b's 26 layers)
+MESH_LAYERS = 12
+
+
+def plain_and_sharded(api, ocfg, batches, shards, device):
+    """The plain ``make_train_step`` from ``api.init(0)``, then the
+    one-rank ``make_sharded_train_step`` on ``shards``' slices, each
+    with donated state over the same ``batches`` (full remat), the first
+    path freed before the second starts. Raises unless every parameter,
+    moment (``state_digest``) and metric is equal after every step.
+    Returns each path's steps' ms (CUDA events) and metrics and its peak
+    memory."""
+    import torch
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (make_sharded_train_step,
+                                              make_train_step)
+    out = {}
+    for name in ("plain", "sharded"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if name == "plain":
+            step = make_train_step(api, ocfg, remat=True, donate=True)
+            params = api.init(0, device)
+        else:
+            step = make_sharded_train_step(api, ocfg, shards, remat=True,
+                                           donate=True)
+            params = api.init(0, device, keep=shards.keep)
+        state = opt.init(params)
+        runs = []
+        for batch in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, state, m = step(params, state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append((start.elapsed_time(end),
+                         state_digest((params, state)),
+                         {k: float(v) for k, v in m.items()}))
+        del params, state, step, m
+        out[name] = {"step_ms": [r[0] for r in runs],
+                     "metrics": [r[2] for r in runs],
+                     "digests": [r[1] for r in runs],
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, (dp, ds) in enumerate(zip(out["plain"]["digests"],
+                                     out["sharded"]["digests"])):
+        mp, ms = out["plain"]["metrics"][i], out["sharded"]["metrics"][i]
+        if ds != dp or ms != mp:
+            raise AssertionError(f"{api.cfg.name}: step {i} of the one-rank "
+                                 f"sharded path differs from the plain "
+                                 f"step: {ms} against {mp}")
+    leaves = len(out["plain"]["digests"][0])
+    for path in out.values():
+        del path["digests"]
+    return {**out, "leaves_compared": leaves}
 
 
 def phase_train_mesh(device, plain_step_ms: float):
@@ -5087,14 +5147,16 @@ def phase_train_mesh(device, plain_step_ms: float):
     which builds the communicator, timed apart), the (1, 1) production
     mesh over it, the baseline rules' ``DataShards`` (the embed dimension
     on ``data``; the norm scales and attention biases replicated), and
-    qwen2.5-3b at the train phase's shapes (36 layers, seq 4096, batch 2,
-    full remat, donated state) through ``make_sharded_train_step`` for
-    MESH_STEPS steps. The plain ``make_train_step`` steps from the same
-    seeded state over the same batches run first; after each step every
-    parameter and moment (``state_digest``) and the metrics must be equal
-    bit for bit. Each step's ms (CUDA events) and each path's peak
-    memory (beside what earlier phases left allocated) are printed with
-    the train phase's steady step."""
+    qwen2.5-3b at MESH_LAYERS of its 36 layers and the train phase's
+    shapes (seq 4096, batch 2, full remat, donated state) through
+    ``make_sharded_train_step`` for
+    MESH_STEPS steps against the plain ``make_train_step`` steps from the
+    same seeded state over the same batches (``plain_and_sharded``: every
+    parameter, moment and metric equal bit for bit after each step).
+    Each step's ms (CUDA events) and each path's peak memory (beside what
+    earlier phases left allocated) are printed with the train phase's
+    steady step (at 36 layers)."""
+    import dataclasses
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -5105,39 +5167,13 @@ def phase_train_mesh(device, plain_step_ms: float):
     from repro_torch.sharding.rules import data_shards, default_rules
     from repro_torch.train import data as data_mod
     from repro_torch.train import optimizer as opt
-    from repro_torch.train.train_step import (make_sharded_train_step,
-                                              make_train_step)
-    cfg = get_config("qwen2.5-3b")
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              num_layers=MESH_LAYERS)
     api = get_model(cfg)
     ocfg = opt.AdamWConfig(warmup_steps=2, total_steps=100)
     dcfg = data_mod.DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
-
-    def run(step, params):
-        """MESH_STEPS steps: (ms, digest, metrics) of each."""
-        state = opt.init(params)
-        out = []
-        for i in range(MESH_STEPS):
-            batch = data_mod.make_batch(dcfg, i, device)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            params, state, m = step(params, state, batch)
-            end.record()
-            torch.cuda.synchronize()
-            out.append((start.elapsed_time(end),
-                        state_digest((params, state)),
-                        {k: float(v) for k, v in m.items()}))
-        return out
-
     held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    plain = run(make_train_step(api, ocfg, remat=True, donate=True),
-                api.init(0, device))
-    plain_peak = torch.cuda.max_memory_allocated()
-    gc.collect()
-    torch.cuda.empty_cache()
     reset_launches()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     dev = start_process_group(0, 1, local_rendezvous(), device)
     try:
@@ -5147,36 +5183,200 @@ def phase_train_mesh(device, plain_step_ms: float):
         mesh = make_production_mesh(shape=(1, 1), device=dev)
         shards = data_shards(mesh, default_rules(mesh), api.param_axes(),
                              api.param_shapes())
-        sharded = run(make_sharded_train_step(api, ocfg, shards, remat=True,
-                                              donate=True),
-                      api.init(0, dev, keep=shards.keep))
+        batches = [data_mod.make_batch(dcfg, i, dev)
+                   for i in range(MESH_STEPS)]
+        paths = plain_and_sharded(api, ocfg, batches, shards, dev)
     finally:
         end_process_group()
     phase_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
     launches = read_launches()
     n_sharded = sum(shards.sharded())
-    for i, ((_, dp, mp), (_, ds, ms)) in enumerate(zip(plain, sharded)):
-        if ds != dp or ms != mp:
-            raise AssertionError(f"train_mesh: step {i} of the one-rank "
-                                 f"sharded path differs from the plain "
-                                 f"step: {ms} against {mp}")
-    gc.collect()
-    torch.cuda.empty_cache()
     emit({"phase": "train_mesh", "arch": cfg.name, "layers": cfg.num_layers,
+          "reduced": {"num_layers": f"{MESH_LAYERS} of 36"},
           "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "remat": "full",
           "backend": "nccl", "ranks": 1, "mesh": mesh.shape,
           "rules": "baseline", "sharded_leaves": n_sharded,
           "replicated_leaves": len(shards.flat_dims) - n_sharded,
-          "step_ms": [x[0] for x in sharded],
-          "plain_step_ms": [x[0] for x in plain],
+          "step_ms": paths["sharded"]["step_ms"],
+          "plain_step_ms": paths["plain"]["step_ms"],
           "train_phase_step_ms": plain_step_ms,
-          "group_start_s": group_s, "peak_mem_bytes": peak,
-          "plain_peak_mem_bytes": plain_peak,
+          "group_start_s": group_s,
+          "peak_mem_bytes": paths["sharded"]["peak_mem_bytes"],
+          "plain_peak_mem_bytes": paths["plain"]["peak_mem_bytes"],
           "allocated_at_start_bytes": held,
-          "seconds": phase_s, "metrics": [x[2] for x in sharded],
+          "seconds": phase_s, "metrics": paths["sharded"]["metrics"],
           "bit_identical_to_plain_steps": True,
-          "leaves_compared": len(sharded[0][1]),
+          "leaves_compared": paths["leaves_compared"],
+          "nvidia_smi": nvidia_smi_line(), "launches": launches,
+          "ok": True})
+    return launches
+
+
+#: the train_mesh_families phase: dbrx-132b at published width and
+#: DBRX_MESH_LAYERS of its 40 layers (4.49 G parameters: 53.9 GB of bf16
+#: weights and gradients and float32 moments before activations) at
+#: length DBRX_MESH_SEQ, batch 2, at capacity factor DBRX_MESH_CAPACITY:
+#: the published 1.25 drops no assignment of the seeded weights' router
+#: (measured), 1.0 drops some, so that the group's drops are compared
+DBRX_MESH_LAYERS = 1
+DBRX_MESH_SEQ = 4096
+DBRX_MESH_CAPACITY = 1.0
+#: the compressed step's wire key
+MESH_WIRE_KEY = 0x31
+
+
+def phase_train_mesh_families(device):
+    """The other families and ``--compress`` over the data axis on one
+    nccl rank, with everything earlier freed. First, the memory the
+    decay's hash-base cache holds (``lifetime._elem_hash_base``, bounded
+    by bytes): allocated before and after clearing it. Then one group of
+    one rank and, each against the plain one-process path on the card:
+    (a) recurrentgemma-2b at published width and depth (26 layers, seq
+    TRAIN_SEQ, batch TRAIN_BATCH, full remat, donated state) and (b)
+    dbrx-132b at DBRX_MESH_LAYERS of 40 layers (seq DBRX_MESH_SEQ; its
+    MoE layer dispatches over the group, one count all-gather a layer),
+    each MESH_STEPS steps over batches drawn once (``plain_and_sharded``:
+    bit identity after every step, ``dropped`` among the metrics); (c)
+    one ``--compress`` step of the reduced qwen2.5-3b with the device's
+    wire backend (each leaf's codes gathered and written whole through
+    ``extent_write``), parameters, moments, residuals, metrics and wire
+    stats equal to the one-process compressed step's (whose launches do
+    not count); (d) every TRAIN_FAMILIES reduced config's sharded step
+    equal to its plain card step."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch import rng
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.device import (end_process_group, local_rendezvous,
+                                    start_process_group)
+    from repro_torch.memory import default_backend
+    from repro_torch.models import get_model
+    from repro_torch.reliability import lifetime
+    from repro_torch.sharding import make_production_mesh
+    from repro_torch.sharding.rules import data_shards, default_rules
+    from repro_torch.train import compression as comp
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (make_sharded_train_step,
+                                              make_train_step,
+                                              sharded_value_and_grad,
+                                              value_and_grad)
+    t0 = time.perf_counter()
+    cache = {"allocated_before_bytes": torch.cuda.memory_allocated(),
+             "cache_held_bytes": lifetime._elem_hash_base.bytes_held(),
+             "cache_limit_bytes": lifetime._elem_hash_base.limit}
+    lifetime._elem_hash_base.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache["allocated_after_clear_bytes"] = torch.cuda.memory_allocated()
+    print(f"train_mesh_families: allocated {cache}", flush=True)
+    ocfg = opt.AdamWConfig(warmup_steps=2, total_steps=100)
+    reset_launches()
+    dev = start_process_group(0, 1, local_rendezvous(), device)
+    out = {}
+    try:
+        dist.all_reduce(torch.zeros(1, device=dev))
+        mesh = make_production_mesh(shape=(1, 1), device=dev)
+
+        def shards_of(api):
+            return data_shards(mesh, default_rules(mesh), api.param_axes(),
+                               api.param_shapes())
+
+        # (a), (b): full width
+        full = (("recurrentgemma-2b", get_config("recurrentgemma-2b"),
+                 TRAIN_SEQ),
+                ("dbrx-132b", dataclasses.replace(
+                    get_config("dbrx-132b"), num_layers=DBRX_MESH_LAYERS,
+                    capacity_factor=DBRX_MESH_CAPACITY), DBRX_MESH_SEQ))
+        for arch, cfg, seq in full:
+            t = time.perf_counter()
+            api = get_model(cfg)
+            dcfg = data_mod.DataConfig(cfg.vocab_size, seq, TRAIN_BATCH)
+            batches = [data_mod.make_batch(dcfg, i, dev)
+                       for i in range(MESH_STEPS)]
+            paths = plain_and_sharded(api, ocfg, batches, shards_of(api),
+                                      dev)
+            del batches
+            if cfg.num_experts and not all(
+                    m["dropped"] for m in paths["sharded"]["metrics"]):
+                raise AssertionError(f"train_mesh_families: {arch} dropped "
+                                     "no assignment")
+            out[arch] = {"layers": cfg.num_layers, "seq": seq,
+                         "batch": TRAIN_BATCH, "params": api.num_params(),
+                         **paths, "seconds": time.perf_counter() - t}
+        # (c) one --compress step through the device's wire
+        t = time.perf_counter()
+        api = get_model(get_config("qwen2.5-3b").reduced())
+        shards = shards_of(api)
+        ccfg = comp.CompressionConfig(wire_backend=default_backend(dev))
+        key = rng.PRNGKey(MESH_WIRE_KEY)
+        batch = {k: v.to(dev) for k, v in train_batch(api.cfg, 2).items()}
+
+        def compressed(params, vg, dims, sharded):
+            ef = comp.init_state(params)
+            loss, aux, grads = vg(params)
+            grads, ef, st = comp.compress_grads(grads, ef, ccfg, key,
+                                                with_stats=True, dims=dims)
+            params, state, om = opt.update(ocfg, grads, opt.init(params),
+                                           params, sharded=sharded)
+            return ((params, state, ef), {"loss": float(loss), **{
+                k: float(v) for k, v in {**aux, **om}.items()}},
+                {k: float(v) for k, v in vars(st).items()})
+
+        with uncounted("extent_write"):
+            want = compressed(api.init(0, dev),
+                              lambda p: value_and_grad(api, p, batch),
+                              None, None)
+        got = compressed(api.init(0, dev, keep=shards.keep),
+                         lambda p: sharded_value_and_grad(api, p, batch,
+                                                          shards),
+                         shards.flat_dims, shards.sharded())
+        if not (all(torch.equal(a, b) for a, b in zip(T.leaves(got[0]),
+                                                       T.leaves(want[0])))
+                and got[1:] == want[1:]):
+            raise AssertionError(f"train_mesh_families: the compressed "
+                                 f"sharded step {got[1:]} against {want[1:]}")
+        out["compress"] = {"arch": api.cfg.name, "wire": ccfg.wire_backend,
+                           "metrics": got[1], "wire_stats": got[2],
+                           "leaves": len(T.leaves(got[0][0])),
+                           "seconds": time.perf_counter() - t}
+        # (d) every reduced family
+        t = time.perf_counter()
+        red = {}
+        for arch in TRAIN_FAMILIES:
+            api = get_model(get_config(arch).reduced())
+            batch = {k: v.to(dev) for k, v in train_batch(api.cfg,
+                                                          1).items()}
+            ocfg_r = opt.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                     total_steps=10)
+            p = api.init(0, dev)
+            want = make_train_step(api, ocfg_r)(p, opt.init(p), batch)
+            sh = shards_of(api)
+            p = api.init(0, dev, keep=sh.keep)
+            got = make_sharded_train_step(api, ocfg_r, sh)(p, opt.init(p),
+                                                           batch)
+            gm = {k: float(v) for k, v in got[2].items()}
+            if not (all(torch.equal(a, b) for a, b in zip(
+                    T.leaves(got[:2]), T.leaves(want[:2])))
+                    and gm == {k: float(v) for k, v in want[2].items()}):
+                raise AssertionError(f"train_mesh_families: {arch}'s "
+                                     f"sharded step differs on the card")
+            red[arch] = gm
+        out["reduced_families"] = {"steps": red,
+                                   "seconds": time.perf_counter() - t}
+    finally:
+        end_process_group()
+    launches = read_launches()
+    emit({"phase": "train_mesh_families", "backend": "nccl", "ranks": 1,
+          "mesh": mesh.shape, "rules": "baseline", "remat": "full",
+          "hash_base_cache": cache, "reduced": {
+              "dbrx-132b": {"num_layers": f"{DBRX_MESH_LAYERS} of 40",
+                            "capacity_factor": f"{DBRX_MESH_CAPACITY} "
+                                               "(published 1.25)"}},
+          **out, "bit_identical_to_plain_steps": True,
+          "seconds": time.perf_counter() - t0,
           "nvidia_smi": nvidia_smi_line(), "launches": launches,
           "ok": True})
     return launches
@@ -5403,6 +5603,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches["train_mesh"] = phase_train_mesh(device, train_step_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches["train_mesh_families"] = phase_train_mesh_families(device)
     gc.collect()
     torch.cuda.empty_cache()
     train_launches["tools"] = phase_tools(device, train_step_ms)

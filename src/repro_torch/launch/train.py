@@ -8,14 +8,15 @@
 
 Runs on CUDA unless ``--device cpu``. The launcher starts one rank a
 CUDA device present (rank 0 in this process, the others spawned with
-``torch.multiprocessing``), joined by an ``nccl`` group; ``--device cpu``
-runs one ``gloo`` rank. Every world size, 1 included, takes the same
-path: the ranks form a (data=N, model=1) mesh, each holds its slices of
-the parameters and moments under ``--rules`` (``baseline`` cuts the
-embed dimension, FSDP) and trains on its rows of each global batch, and
-rank 0 prints. ``--reduced`` takes the small float32 config. The dense
-family trains over more than one rank; the other families and
-``--compress`` run on one rank and are refused over more. The loop wires
+``torch.multiprocessing``), joined by an ``nccl`` group; ``--reduced``
+(the small float32 config) runs one rank, as the reference's runs on its
+one-device host mesh, and ``--device cpu`` one ``gloo`` rank. Every
+world size, 1 included, takes the same path: the ranks form a (data=N,
+model=1) mesh, each holds its slices of the parameters and moments under
+``--rules`` (``baseline`` cuts the embed dimension, FSDP) and trains on
+its rows of each global batch (an MoE layer dispatches over the group's
+rows, ``--compress`` compresses each rank's slice of the gradient as one
+process compresses the whole), and rank 0 prints. The loop wires
 every training piece together: the synthetic data pipeline, AdamW,
 error-feedback int8 gradients (``--compress``), asynchronous EXTENT
 checkpoints every ``--ckpt-every`` steps (rank 0 gathers each leaf and
@@ -48,8 +49,7 @@ from repro_torch.train import optimizer as opt
 from repro_torch.train.checkpoint import Checkpointer
 from repro_torch.train.fault_tolerance import (HeartbeatMonitor,
                                                StragglerMonitor)
-from repro_torch.train.train_step import (check_data_parallel,
-                                          make_sharded_train_step,
+from repro_torch.train.train_step import (make_sharded_train_step,
                                           sharded_value_and_grad)
 
 
@@ -82,15 +82,16 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[list] = None) -> Dict[str, Any]:
-    """Run the loop on one rank a device; returns rank 0's losses, last
-    save's report (None without ``--ckpt-dir``) and straggler flags'
-    count."""
+    """Run the loop on one rank a device (one rank with ``--reduced`` or
+    on the CPU); returns rank 0's losses, last save's report (None
+    without ``--ckpt-dir``) and straggler flags' count."""
     args = _parser().parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    world = torch.cuda.device_count() if dev.type == "cuda" else 1
+    world = (torch.cuda.device_count()
+             if dev.type == "cuda" and not args.reduced else 1)
     return launch(world, args, cfg)
 
 
@@ -98,10 +99,8 @@ def launch(world: int, args: argparse.Namespace, cfg,
            init_method: Optional[str] = None, timeout_s: float = 600.0
            ) -> Dict[str, Any]:
     """``world`` ranks of ``train_rank`` over ``cfg``: rank 0 here, ranks
-    1.. spawned (each binds its own device); rank 0's result. A family or
-    option not built over more than one rank raises before any starts;
-    a rank that fails ends the others."""
-    check_data_parallel(cfg, world, args.compress)
+    1.. spawned (each binds its own device); rank 0's result. A rank that
+    fails ends the others."""
     init_method = init_method or local_rendezvous()
     rest = (world, init_method, args, cfg, timeout_s)
     ctx = (mp.start_processes(_spawned_rank, args=rest, nprocs=world - 1,
@@ -143,7 +142,7 @@ def _train(rank: int, world: int, dev: torch.device,
     api = get_model(cfg)
     shards = data_shards(mesh, strategy_rules(mesh, args.rules),
                          api.param_axes(), api.param_shapes())
-    check_data_parallel(cfg, shards.n, args.compress)
+    every_row = data_mod.every_row(args.batch, world)
     remat = {"full": True, "selective": "selective", "none": False}[
         args.remat]
     params = api.init(0, dev, keep=shards.keep)
@@ -159,9 +158,11 @@ def _train(rank: int, world: int, dev: torch.device,
 
     if args.compress:
         def step(params, state, ef, batch):
-            loss, _, grads = sharded_value_and_grad(api, params, batch,
-                                                    shards, remat=remat)
-            grads, ef = comp.compress_grads(grads, ef, ccfg)
+            loss, _, grads = sharded_value_and_grad(
+                api, params, batch, shards, every_row=every_row,
+                remat=remat)
+            grads, ef = comp.compress_grads(grads, ef, ccfg,
+                                            dims=shards.flat_dims)
             params, state, om = opt.update(ocfg, grads, state, params,
                                            donate=True, sharded=sharded)
             return params, state, ef, {"loss": loss, **om}
@@ -186,7 +187,7 @@ def _train(rank: int, world: int, dev: torch.device,
         if args.compress:
             params, state, ef, m = step(params, state, ef, batch)
         else:
-            params, state, m = base(params, state, batch)
+            params, state, m = base(params, state, batch, every_row)
         losses.append(float(m["loss"]))
         sm.record(f"rank{rank}", i, time.time() - t0)
         if ck and i and i % args.ckpt_every == 0:

@@ -30,8 +30,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 #: family -> the module serving it
 _FAMILIES = {"dense": transformer, "moe": transformer, "hybrid": rglru,
              "ssm": ssm, "vlm": vlm, "audio": whisper}
-#: families whose training forward gathers data-sharded leaves
-GATHER_FAMILIES = ("dense", "moe")
 #: families whose prefill takes the whole batch (multimodal leaves)
 _BATCH_PREFILL = ("vlm", "audio")
 
@@ -90,18 +88,17 @@ class ModelApi:
                 + per_expert * cfg.experts_per_token)
 
     def forward_hidden(self, params, batch: Dict[str, torch.Tensor], *,
-                       remat=True, constrain=no_constrain, gather=no_gather):
+                       remat=True, constrain=no_constrain, gather=no_gather,
+                       moe_group=None):
         """(hidden states (B, S_total, D), aux dict) of a training batch;
-        the dense and moe families' aux holds ``lb_loss``. A ``gather``
-        hook (over a data-sharded tree) reaches the transformer families'
-        forward, and no other family takes one."""
-        kw = dict(remat=remat, constrain=constrain)
-        if gather is not no_gather:
-            if self.cfg.family not in GATHER_FAMILIES:
-                raise NotImplementedError(
-                    f"the {self.cfg.family} family's forward gathers no "
-                    "data-sharded leaves")
-            kw["gather"] = gather
+        the transformer families' aux holds ``lb_loss``, and with experts
+        ``dropped``. ``gather(name, subtree)`` makes the leaves of a
+        data-sharded tree whole where each family uses them;
+        ``moe_group`` (a ``moe.TokenGroup``) reaches a model with
+        experts, whose dispatch then serves the group's rows."""
+        kw = dict(remat=remat, constrain=constrain, gather=gather)
+        if moe_group is not None and self.cfg.num_experts:
+            kw["moe_group"] = moe_group
         if self.cfg.family in _BATCH_PREFILL:
             return self._module.hidden_forward(params, batch, self.cfg, **kw)
         return self._module.hidden_forward(params, batch["tokens"], self.cfg,

@@ -18,6 +18,17 @@ The counterpart of ``repro.models.moe``, with its semantics:
     (the reference's scatter-add runs its updates in that order), not by
     an atomic ``index_add_``, whose order would change from run to run.
 
+Over the data axis of a process group (``TokenGroup``) one dispatch
+serves the whole group's batch, as the reference's global program does:
+the capacity comes from the group's token count, an assignment's slot
+is its prefix count over the group's tokens, rank-major as the rows lie
+(``data.rank_rows``: this rank's local count plus the lower ranks'
+per-expert counts, one all-gather of an (E,) count vector a layer), and
+``dropped`` counts the group's drops. Each rank's ``lb_loss`` is its
+partial: its mean router probability times its share of the group's
+tokens against the group's assignment shares, so the ranks' partials
+(and their gradients) sum to the one-process loss.
+
 The expert buffers are filled by ``index_add_`` into zeros, but each
 kept assignment owns its row and every dropped one adds zeros to a spare
 row that is cut off, so no row sums two values and the fill repeats bit
@@ -28,13 +39,15 @@ with MoE layers stays sync-free.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamDesc
+from repro_torch.models.layers import ParamDesc, all_gather_dim
 
 
 def moe_descs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDesc]:
@@ -56,6 +69,31 @@ def capacity_for(cfg: ModelConfig, num_tokens: int) -> int:
     return max(8, -(-cap // 8) * 8)  # round up to a multiple of 8
 
 
+@dataclasses.dataclass(frozen=True)
+class TokenGroup:
+    """The ``n`` ranks of a data axis whose rows one dispatch serves.
+    ``every_row``: each rank holds every row of the batch (one the ranks
+    do not divide, ``data.every_row``), so the dispatch is the
+    one-process dispatch on each rank."""
+    n: int
+    every_row: bool = False
+
+    def tokens(self, local: int) -> int:
+        """The tokens the capacity is sized for."""
+        return local if self.every_row else self.n * local
+
+    def counts(self, local: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the lower ranks' per-expert assignments, the group's): both
+        (E,) int32, from this rank's ``local`` counts."""
+        if self.every_row:
+            return torch.zeros_like(local), local
+        every = all_gather_dim(local[None], 0)                  # (n, E)
+        r = dist.get_rank()
+        return (every[:r].sum(0, dtype=torch.int32),
+                every.sum(0, dtype=torch.int32))
+
+
 def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, indices) of the k largest along the last axis, ties in
     index order (``lax.top_k``'s order)."""
@@ -63,15 +101,19 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
+def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+              group: Optional[TokenGroup] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, D) in the compute dtype -> (y (B, S, D), aux) with aux
     ``dropped`` (assignments over capacity) and ``lb_loss`` (the
-    switch-style load-balancing loss), both device scalars."""
+    switch-style load-balancing loss), both device scalars. With a
+    ``group`` the dispatch is the group's and ``lb_loss`` this rank's
+    partial."""
     B, S, D = x.shape
     T = B * S
     E, k = cfg.num_experts, cfg.experts_per_token
-    cap = capacity_for(cfg, T)
+    T_cap = group.tokens(T) if group is not None else T
+    cap = capacity_for(cfg, T_cap)
     dtype = x.dtype
     xf = x.reshape(T, D)
 
@@ -81,14 +123,19 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # position of each assignment within its expert (exclusive prefix
-    # count, token-major then rank)
+    # count, token-major then rank), after the lower ranks' assignments
     flat_e = eidx.reshape(T * k)
     onehot = (flat_e[:, None] == torch.arange(E, device=x.device)).to(
         torch.int32)                                             # (T*k, E)
     prefix = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
     pos = prefix.gather(1, flat_e[:, None])[:, 0]                # (T*k,)
+    counts = onehot.sum(0, dtype=torch.int32)                    # (E,)
+    if group is not None:
+        below, counts = group.counts(counts)
+        pos = pos + below[flat_e]
     keep = pos < cap
-    dropped = (~keep).sum()
+    # an expert's assignments past the capacity are its drops
+    dropped = (counts - cap).clamp_min(0).sum()
 
     # fill the (E, cap, D) expert buffers: kept assignments own unique
     # rows; dropped ones all land on the spare last row, cut off below
@@ -115,8 +162,12 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     for j in range(k):
         y = y + y_assign[:, j]
 
-    # aux: load-balancing loss ingredients (switch-style)
+    # aux: load-balancing loss ingredients (switch-style); over a group
+    # each rank's mean router probability is weighted by its share of the
+    # group's tokens, so the ranks' partials sum to the group's loss
     me = probs.mean(dim=0)                       # mean router prob / expert
-    ce = onehot.reshape(T, k, E).sum(1).float().mean(0)  # tokens / expert
+    if group is not None:
+        me = me * (1.0 / group.n)
+    ce = counts.float() / T_cap                  # tokens / expert
     aux = {"dropped": dropped, "lb_loss": E * torch.sum(me * ce) / k}
     return y.reshape(B, S, D), aux

@@ -41,8 +41,8 @@ from repro_torch.kernels.local_attention import ops as local_ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (ParamDesc, embed_descs, embed_tokens,
                                        layer_at, mlp_apply, mlp_descs,
-                                       no_constrain, remat_wrap, rms_norm,
-                                       unembed, unstack)
+                                       no_constrain, no_gather, remat_wrap,
+                                       rms_norm, unembed, unstack)
 
 _C_GATE = 8.0  # RG-LRU "c" constant
 
@@ -187,12 +187,16 @@ def _mlp_block(lp, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-                   remat=True, constrain=no_constrain):
-    """The training forward: (final-norm hidden states (B,S,D), {})."""
+                   remat=True, constrain=no_constrain, gather=no_gather):
+    """The training forward: (final-norm hidden states (B,S,D), {}).
+    ``gather(name, subtree)`` makes data-sharded leaves whole: ``embed``
+    and ``final_norm`` around the stacks, a layer's ``rec``, ``att`` and
+    ``mlp`` leaves where the layer runs (inside its group's remat unit,
+    so the recompute gathers them again)."""
     plen = len(cfg.block_pattern)
     n_g, tail = divmod(cfg.num_layers, plen)
-    h = constrain(embed_tokens(params["embed"], tokens, cfg),
-                  ("batch", None, None))
+    h = constrain(embed_tokens(gather("embed", params["embed"]), tokens,
+                               cfg), ("batch", None, None))
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
     rec, att, mlp = (unstack(params[k]) for k in ("rec", "att", "mlp"))
@@ -204,20 +208,24 @@ def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                            softcap_val=0.0, positions=positions)
         return h + attn.out_project(lp, a)
 
+    def rec_mlp(h, i_rec: int, l: int):
+        h = rec_block(gather("rec", rec[i_rec]), h, cfg)[0]
+        return _mlp_block(gather("mlp", mlp[l]), h, cfg)
+
     def group(h, g: int):
         for s in range(2):
-            h = rec_block(rec[2 * g + s], h, cfg)[0]
-            h = _mlp_block(mlp[3 * g + s], h, cfg)
-        h = _mlp_block(mlp[3 * g + 2], att_train(att[g], h), cfg)
+            h = rec_mlp(h, 2 * g + s, 3 * g + s)
+        h = att_train(gather("att", att[g]), h)
+        h = _mlp_block(gather("mlp", mlp[3 * g + 2]), h, cfg)
         return constrain(h, ("batch", None, None))
 
     body = remat_wrap(group, remat)
     for g in range(n_g):
         h = body(h, g)
     for t in range(tail):
-        h = rec_block(rec[2 * n_g + t], h, cfg)[0]
-        h = _mlp_block(mlp[3 * n_g + t], h, cfg)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), {}
+        h = rec_mlp(h, 2 * n_g + t, 3 * n_g + t)
+    return rms_norm(h, gather("final_norm", params["final_norm"]),
+                    cfg.norm_eps), {}
 
 
 def _run_serving(params, h, cfg: ModelConfig, positions, cache, pos,

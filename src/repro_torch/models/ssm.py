@@ -28,8 +28,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (ParamDesc, embed_descs, embed_tokens,
-                                       layer_at, no_constrain, remat_wrap,
-                                       rms_norm, unembed, unstack)
+                                       layer_at, no_constrain, no_gather,
+                                       remat_wrap, rms_norm, unembed,
+                                       unstack)
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -185,18 +186,23 @@ def block_forward(lp, h: torch.Tensor, cfg: ModelConfig, state=None,
 
 
 def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-                   remat=True, constrain=no_constrain):
-    """The training forward: (final-norm hidden states (B,S,D), {})."""
-    h = constrain(embed_tokens(params["embed"], tokens, cfg),
-                  ("batch", None, None))
+                   remat=True, constrain=no_constrain, gather=no_gather):
+    """The training forward: (final-norm hidden states (B,S,D), {}).
+    ``gather(name, subtree)`` makes data-sharded leaves whole: ``embed``
+    and ``final_norm`` around the stack, each block's leaves inside its
+    remat unit, so the recompute gathers them again."""
+    h = constrain(embed_tokens(gather("embed", params["embed"]), tokens,
+                               cfg), ("batch", None, None))
 
     def body(h, lp):
-        return constrain(block_forward(lp, h, cfg)[0], ("batch", None, None))
+        return constrain(block_forward(gather("layers", lp), h, cfg)[0],
+                         ("batch", None, None))
 
     body = remat_wrap(body, remat)
     for lp in unstack(params["layers"]):
         h = body(h, lp)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), {}
+    return rms_norm(h, gather("final_norm", params["final_norm"]),
+                    cfg.norm_eps), {}
 
 
 def _run(params, h, cfg: ModelConfig, cache=None):

@@ -74,14 +74,15 @@ def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
     return {name: {"k": kv, "v": kv} for name in cache_spec(cfg, 8)}
 
 
-def _ffn(lp, x: torch.Tensor, cfg: ModelConfig):
+def _ffn(lp, x: torch.Tensor, cfg: ModelConfig, moe_group=None):
     """(FFN output, the MoE aux or None)."""
     if cfg.num_experts:
-        return moe_mod.moe_apply(lp["moe"], x, cfg)
+        return moe_mod.moe_apply(lp["moe"], x, cfg, moe_group)
     return mlp_apply(lp["mlp"], x, cfg.mlp_act), None
 
 
-def _block(h, lp, cfg: ModelConfig, attend, constrain=no_constrain):
+def _block(h, lp, cfg: ModelConfig, attend, constrain=no_constrain,
+           moe_group=None):
     """One pre-norm (optionally sandwich-norm) layer; ``attend(x)``
     returns (attention output, k, v to cache). Returns (h, k, v, the
     FFN's aux or None)."""
@@ -91,7 +92,7 @@ def _block(h, lp, cfg: ModelConfig, attend, constrain=no_constrain):
     if cfg.use_post_norms:
         a = rms_norm(a, lp["ln_post_attn"], eps)
     h = constrain(h + a, ("batch", None, None))
-    m, aux = _ffn(lp, rms_norm(h, lp["ln_mlp"], eps), cfg)
+    m, aux = _ffn(lp, rms_norm(h, lp["ln_mlp"], eps), cfg, moe_group)
     if cfg.use_post_norms:
         m = rms_norm(m, lp["ln_post_mlp"], eps)
     return constrain(h + m, ("batch", None, None)), k, v, aux
@@ -99,15 +100,18 @@ def _block(h, lp, cfg: ModelConfig, attend, constrain=no_constrain):
 
 def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                    extra_embeds: Optional[torch.Tensor] = None, remat=True,
-                   constrain=no_constrain, gather=no_gather
+                   constrain=no_constrain, gather=no_gather, moe_group=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training forward over the whole sequence: (final-norm hidden
     states (B, S_total, D), {"lb_loss": the MoE load-balancing losses
-    summed over the layers in float32, 0 for a dense model}).
+    summed over the layers in float32, 0 for a dense model; with experts
+    also "dropped", the assignments over capacity summed likewise}).
     ``extra_embeds`` (B,N,D) go ahead of the token embeddings.
     ``gather(name, subtree)`` makes data-sharded leaves whole: ``embed``
     and ``final_norm`` around the stack, each layer's leaves inside its
-    remat unit, so the recompute gathers them again."""
+    remat unit, so the recompute gathers them again. ``moe_group`` (a
+    ``moe.TokenGroup``) dispatches each MoE layer over the group's rows;
+    its count all-gather sits in the remat unit too."""
     h = embed_tokens(gather("embed", params["embed"]), tokens, cfg)
     if extra_embeds is not None:
         h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
@@ -118,7 +122,7 @@ def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     windows = [min(w if w > 0 else S, S) for w in cfg.window_pattern]
     layers = unstack(params["layers"])
 
-    def group_body(h, lb, g: int):
+    def group_body(h, lb, dropped, g: int):
         for s in range(plen):
             lp = gather("layers", layers[g * plen + s])
 
@@ -129,17 +133,22 @@ def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                                       softcap_val=cfg.attn_logit_softcap,
                                       positions=positions), k, v
 
-            h, _, _, aux = _block(h, lp, cfg, attend, constrain)
+            h, _, _, aux = _block(h, lp, cfg, attend, constrain, moe_group)
             if aux is not None:
                 lb = lb + aux["lb_loss"]
-        return h, lb
+                dropped = dropped + aux["dropped"]
+        return h, lb, dropped
 
     body = remat_wrap(group_body, remat)
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
+    dropped = torch.zeros((), dtype=torch.int64, device=h.device)
     for g in range(n_g):
-        h, lb = body(h, lb, g)
+        h, lb, dropped = body(h, lb, dropped, g)
+    aux = {"lb_loss": lb}
+    if cfg.num_experts:
+        aux["dropped"] = dropped
     return (rms_norm(h, gather("final_norm", params["final_norm"]),
-                     cfg.norm_eps), {"lb_loss": lb})
+                     cfg.norm_eps), aux)
 
 
 def logits_fn(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
-from repro_torch.models.layers import ParamDesc, no_constrain
+from repro_torch.models.layers import ParamDesc, no_constrain, no_gather
 from repro_torch.models.transformer import (cache_axes, decode_step,  # noqa: F401
                                             init_cache)
 
@@ -34,22 +34,27 @@ def descs(cfg: ModelConfig) -> Dict[str, Any]:
     return d
 
 
-def project(params, image_embeds: torch.Tensor, dtype) -> torch.Tensor:
+def project(params, image_embeds: torch.Tensor, dtype,
+            gather=no_gather) -> torch.Tensor:
     """(B,N,vision_dim) -> (B,N,d_model) in ``dtype``."""
-    p = params["projector"]
+    p = gather("projector", params["projector"])
     h = image_embeds.to(dtype) @ p["w1"]
     h = F.gelu((h + p["b1"]).float(), approximate="tanh").to(dtype)
     return h @ p["w2"] + p["b2"]
 
 
 def hidden_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                   *, remat=True, constrain=no_constrain):
-    """The training forward: the projected image ahead of the tokens."""
+                   *, remat=True, constrain=no_constrain, gather=no_gather,
+                   moe_group=None):
+    """The training forward: the projected image ahead of the tokens;
+    ``gather`` makes the projector whole once, then reaches the
+    transformer's stack (``transformer.hidden_forward``)."""
     img = project(params, batch["image_embeds"],
-                  getattr(torch, cfg.compute_dtype))
+                  getattr(torch, cfg.compute_dtype), gather)
     return transformer.hidden_forward(params, batch["tokens"], cfg,
                                       extra_embeds=img, remat=remat,
-                                      constrain=constrain)
+                                      constrain=constrain, gather=gather,
+                                      moe_group=moe_group)
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

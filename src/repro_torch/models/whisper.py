@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (ParamDesc, layer_at, no_constrain,
-                                       remat_wrap, sinusoid_at,
+                                       no_gather, remat_wrap, sinusoid_at,
                                        sinusoid_positions, unstack)
 
 #: the pool's cross-cache length: whisper's 30-second window of frames
@@ -136,9 +136,10 @@ def _cross_kv(lp, enc_h: torch.Tensor, cfg: ModelConfig):
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig, *, remat=False,
-           constrain=no_constrain) -> torch.Tensor:
+           constrain=no_constrain, gather=no_gather) -> torch.Tensor:
     """(B,S_enc,D) frames -> the encoder's final hidden states; each layer
-    a remat unit under ``remat`` (serving runs it without)."""
+    a remat unit under ``remat`` (serving runs it without), its leaves
+    gathered inside it."""
     dtype = getattr(torch, cfg.compute_dtype)
     B, S, D = frames.shape
     h = frames.to(dtype) + sinusoid_positions(
@@ -148,6 +149,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, *, remat=False,
     eps = cfg.norm_eps
 
     def body(h, lp):
+        lp = gather("encoder", lp)
         a, _ = _self_attn(lp["self"], layer_norm(h, lp["ln1_s"], lp["ln1_b"],
                                                  eps), cfg, positions,
                           causal=False)
@@ -158,22 +160,25 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, *, remat=False,
     body = remat_wrap(body, remat)
     for lp in unstack(params["encoder"]):
         h = body(h, lp)
-    return layer_norm(h, params["enc_final_s"], params["enc_final_b"], eps)
+    return layer_norm(h, gather("enc_final_s", params["enc_final_s"]),
+                      gather("enc_final_b", params["enc_final_b"]), eps)
 
 
 def decode_train(params, enc_h: torch.Tensor, tokens: torch.Tensor,
-                 cfg: ModelConfig, *, remat=True, constrain=no_constrain
-                 ) -> torch.Tensor:
+                 cfg: ModelConfig, *, remat=True, constrain=no_constrain,
+                 gather=no_gather) -> torch.Tensor:
     """The decoder over whole target sequences (B,S), causal self-attention
-    and cross-attention to ``enc_h``: final-norm hidden states (B,S,D)."""
+    and cross-attention to ``enc_h``: final-norm hidden states (B,S,D);
+    ``gather`` as in ``encode``."""
     B, S = tokens.shape
-    h = params["embed"]["embedding"][tokens]
+    h = gather("embed", params["embed"])["embedding"][tokens]
     h = h + sinusoid_positions(S, cfg.d_model, device=h.device).to(
         h.dtype)[None]
     h = constrain(h, ("batch", None, None))
     positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
 
     def body(h, lp):
+        lp = gather("decoder", lp)
         kv = _cross_kv(lp["cross"], enc_h, cfg)
         h, _ = _decoder_layer(lp, h, kv, cfg, positions)
         return constrain(h, ("batch", None, None))
@@ -181,17 +186,21 @@ def decode_train(params, enc_h: torch.Tensor, tokens: torch.Tensor,
     body = remat_wrap(body, remat)
     for lp in unstack(params["decoder"]):
         h = body(h, lp)
-    return _final(params, h, cfg)
+    return layer_norm(h, gather("dec_final_s", params["dec_final_s"]),
+                      gather("dec_final_b", params["dec_final_b"]),
+                      cfg.norm_eps)
 
 
 def hidden_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                   *, remat=True, constrain=no_constrain):
+                   *, remat=True, constrain=no_constrain, gather=no_gather):
     """The training forward: (frames, tokens) -> (decoder hidden states,
-    {})."""
+    {}). ``gather(name, subtree)`` makes data-sharded leaves whole: the
+    embedding and the final norms around the stacks, each ``encoder``
+    and ``decoder`` layer inside its remat unit."""
     enc_h = encode(params, batch["frames"], cfg, remat=remat,
-                   constrain=constrain)
+                   constrain=constrain, gather=gather)
     return decode_train(params, enc_h, batch["tokens"], cfg, remat=remat,
-                        constrain=constrain), {}
+                        constrain=constrain, gather=gather), {}
 
 
 def _decoder_layer(lp, h, cross_kv, cfg: ModelConfig, positions,

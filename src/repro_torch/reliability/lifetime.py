@@ -54,6 +54,7 @@ checkpoint restore's decay-and-scrub pass (``train.checkpoint``).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 from typing import Any, Optional, Sequence, Tuple
@@ -122,11 +123,42 @@ def _retention_thresholds(dtype: torch.dtype, level: Priority, t_k: float,
     return thr
 
 
-@functools.lru_cache(maxsize=8)
-def _elem_hash_base(n: int, device: torch.device) -> torch.Tensor:
+#: bytes of int64 bases ``_elem_hash_base`` keeps between calls
+ELEM_BASE_CACHE_BYTES = 1 << 29
+
+
+class _BaseCache:
     """``(flat element index * K_ELEM) mod 2^32`` for ``n`` elements — the
-    seed-independent half of the counter hash, built once per size."""
-    return mul32(torch.arange(n, dtype=torch.int64, device=device), K_ELEM)
+    seed-independent half of the counter hash — kept per (size, device)
+    while the kept bases total at most ``limit`` bytes, the least
+    recently used going first; a base larger than ``limit`` is built at
+    each call, so no caller inherits gigabytes of them."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self._kept: "collections.OrderedDict" = collections.OrderedDict()
+
+    def __call__(self, n: int, device: torch.device) -> torch.Tensor:
+        key = (n, device)
+        if key in self._kept:
+            self._kept.move_to_end(key)
+            return self._kept[key]
+        base = mul32(torch.arange(n, dtype=torch.int64, device=device),
+                     K_ELEM)
+        if 8 * n <= self.limit:
+            self._kept[key] = base
+            while self.bytes_held() > self.limit:
+                self._kept.popitem(last=False)
+        return base
+
+    def bytes_held(self) -> int:
+        return sum(8 * n for n, _ in self._kept)
+
+    def cache_clear(self) -> None:
+        self._kept.clear()
+
+
+_elem_hash_base = _BaseCache(ELEM_BASE_CACHE_BYTES)
 
 
 def _to_int_bits(v: torch.Tensor, nbits: int, dtype: torch.dtype

@@ -27,7 +27,8 @@ a later slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Dict, FrozenSet, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -148,10 +149,13 @@ class DataShards:
     group. ``dims`` is the params tree's structure with, at each leaf,
     the dimension of which this rank holds block ``mesh.rank`` of N, or
     None where every rank holds the whole leaf; ``flat_dims`` the same
-    in leaf order."""
+    in leaf order; ``stacks`` the top-level subtrees whose leaves lead
+    with a ``layers`` axis (``layer_stacks``), which the model gathers
+    a layer at a time."""
     mesh: Mesh
     dims: Any
     flat_dims: List[Optional[int]]
+    stacks: Optional[FrozenSet[str]] = None
 
     def __post_init__(self):
         make_constrain(self.mesh, {})
@@ -182,10 +186,12 @@ class DataShards:
 
     def gather(self, name: str, tree: Any) -> Any:
         """The model's gather hook: the subtree ``params[name]`` whole
-        (for ``layers``, one layer of the stack ``unstack`` took
-        apart)."""
+        (for a stack, one layer of it, as ``unstack`` took it apart)."""
+        if self.stacks is None:
+            raise ValueError("DataShards built without the logical axes: "
+                             "use data_shards")
         return gather_slices(tree, self.dims[name],
-                             1 if name == "layers" else 0)
+                             1 if name in self.stacks else 0)
 
     def sync_grads(self, grads: Any) -> None:
         """Sum the replicated leaves' gradients over the ranks, in place
@@ -212,12 +218,33 @@ def data_dims(mesh: Mesh, rules: Dict[str, Axis], axes_tree: Any,
     return tdef.unflatten(dims), dims
 
 
+def layer_stacks(axes_tree: Dict[str, Any]) -> FrozenSet[str]:
+    """The top-level names of a params tree's logical axes whose every
+    leaf leads with ``layers``; a subtree whose leaves disagree raises."""
+    out = set()
+    for name, sub in axes_tree.items():
+        lead = {axes[0] == "layers" if axes else False
+                for axes in _axes_leaves(sub)}
+        if len(lead) != 1:
+            raise ValueError(f"{name}: some leaves are layer stacks, "
+                             "some are not")
+        if lead.pop():
+            out.add(name)
+    return frozenset(out)
+
+
+def _axes_leaves(tree: Any) -> List[Tuple]:
+    if _is_axes(tree):
+        return [tree]
+    return [a for k in sorted(tree) for a in _axes_leaves(tree[k])]
+
+
 def data_shards(mesh: Mesh, rules: Dict[str, Axis], axes_tree: Any,
                 shapes_tree: Any) -> DataShards:
     """The ``DataShards`` of a params tree (its logical axes and shapes)
     under ``rules``, on this process's rank of the group."""
-    return DataShards(mesh, *data_dims(mesh, rules, axes_tree,
-                                       shapes_tree))
+    return DataShards(mesh, *data_dims(mesh, rules, axes_tree, shapes_tree),
+                      stacks=layer_stacks(axes_tree))
 
 
 def _is_axes(x: Any) -> bool:

@@ -66,6 +66,13 @@ def make_batch(cfg: DataConfig, step: int, device=None
     return {"tokens": tokens, "labels": labels}
 
 
+def every_row(batch_size: int, world: int) -> bool:
+    """Whether each of ``world`` ranks holds every row of a global batch
+    of ``batch_size`` (``rank_rows``): where the ranks do not divide
+    it."""
+    return batch_size % world != 0
+
+
 def rank_rows(batch: Dict[str, torch.Tensor], rank: int, world: int
               ) -> Dict[str, torch.Tensor]:
     """Rank ``rank``'s rows ``[r B / N, (r + 1) B / N)`` of a global batch
@@ -73,7 +80,7 @@ def rank_rows(batch: Dict[str, torch.Tensor], rank: int, world: int
     not divide the batch (replicated, as ``spec_for`` replicates what
     does not divide)."""
     B = next(iter(batch.values())).shape[0]
-    if world == 1 or B % world:
+    if world == 1 or every_row(B, world):
         return batch
     n = B // world
     return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}

@@ -25,14 +25,13 @@ import torch.distributed as dist
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import tree as T
-from repro_torch.models import GATHER_FAMILIES, ModelApi
-from repro_torch.models.layers import no_constrain, no_gather
+from repro_torch.models import ModelApi
+from repro_torch.models.layers import no_constrain
+from repro_torch.models.moe import TokenGroup
 from repro_torch.train import optimizer as opt
 
 IGNORE = -1
 LB_LOSS_COEF = 0.01
-#: the families that train over more than one rank of the data axis
-DATA_FAMILIES = ("dense",)
 
 
 def chunked_ce_loss(api: ModelApi, params, h: torch.Tensor,
@@ -134,79 +133,70 @@ def make_train_step(api: ModelApi, opt_cfg: opt.AdamWConfig, *,
 
 
 def sharded_value_and_grad(api: ModelApi, params, batch, shards, *,
-                           loss_chunk: int = 256, remat=True
-                           ) -> Tuple[torch.Tensor, Dict, Any]:
+                           every_row: bool = False, loss_chunk: int = 256,
+                           remat=True) -> Tuple[torch.Tensor, Dict, Any]:
     """``value_and_grad`` of the whole group's loss on this rank's slices
     of the parameters (``shards``: a ``sharding.rules.DataShards``) and
     its rows of the batch: (loss, aux, gradient tree of the slices).
+    ``every_row``: the rank holds every row of the global batch, one the
+    ranks do not divide (``data.every_row``).
 
     The loss is the CE summed over every rank's rows over the token
     count summed likewise, never a mean of the ranks' means: each rank
     differentiates its own CE sum over the group's count, and the
     gathers' reduce-scatters (sharded leaves) and ``sync_grads``
     (replicated ones) sum the ranks' gradients. Where every rank holds
-    every row (a batch the ranks do not divide), the count is N times
-    the batch's, so the sum over ranks is the one-device gradient. The
-    loss and aux are detached and equal on every rank."""
+    every row, the count is N times the batch's, so the sum over ranks is
+    the one-device gradient. A model with experts dispatches over the
+    group (``moe.TokenGroup``) and each rank differentiates its partial
+    ``lb_loss``, whose sum over the ranks is the one-device loss. The
+    loss and aux are detached and equal on every rank; the reported
+    ``lb_loss`` is the partials' sum."""
     flat, tdef = T.flatten_with_def(params)
     leaves = [p.detach().requires_grad_(True) for _, p in flat]
     p = tdef.unflatten(leaves)
-    gather = no_gather
-    if api.cfg.family in GATHER_FAMILIES:
-        # the embedding is made whole once, for the forward and the logits
-        p = {**p, "embed": shards.gather("embed", p["embed"])}
+    # the embedding is made whole once, for the forward and the logits
+    p = {**p, "embed": shards.gather("embed", p["embed"])}
 
-        def gather(name, tree):
-            return tree if name == "embed" else shards.gather(name, tree)
-    h, aux = api.forward_hidden(p, batch, remat=remat, gather=gather)
+    def gather(name, tree):
+        return tree if name == "embed" else shards.gather(name, tree)
+
+    h, aux = api.forward_hidden(p, batch, remat=remat, gather=gather,
+                                moe_group=TokenGroup(shards.n, every_row))
     loss_sum, count = chunked_ce_sum(api, p, h, batch["labels"], loss_chunk)
-    sums = torch.stack([loss_sum.detach(), count])
+    lb = "lb_loss" in aux
+    sums = torch.stack([loss_sum.detach(), count]
+                       + ([aux["lb_loss"].detach()] if lb else []))
     dist.all_reduce(sums)
     loss = loss_sum / torch.clamp(sums[1], min=1.0)
-    if "lb_loss" in aux:
+    if lb:
         loss = loss + LB_LOSS_COEF * aux["lb_loss"]
     grads = tdef.unflatten(list(torch.autograd.grad(
         loss, leaves, allow_unused=True, materialize_grads=True)))
     shards.sync_grads(grads)
-    ce = sums[0] / torch.clamp(sums[1], min=1.0)
-    total = ce
-    if "lb_loss" in aux:
-        total = total + LB_LOSS_COEF * aux["lb_loss"].detach()
-    return (total, {"ce_loss": ce, "tokens": sums[1],
-                    **{k: v.detach() for k, v in aux.items()}}, grads)
-
-
-def check_data_parallel(cfg, n: int, compress: bool = False) -> None:
-    """Raise where a run over ``n`` > 1 ranks of the data axis is not
-    built yet: a family outside ``DATA_FAMILIES`` (the moe family's
-    dispatch sizes capacity from the tokens it sees), or gradient
-    compression (its int8 wire keys whole leaves)."""
-    if n == 1:
-        return
-    if cfg.family not in DATA_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family trains on one rank; "
-            f"over data={n} only {DATA_FAMILIES} is built")
-    if compress:
-        raise NotImplementedError(
-            f"gradient compression over data={n}: the int8 wire writes "
-            "whole leaves, not a rank's slices")
+    aux = {k: v.detach() for k, v in aux.items()}
+    total = ce = sums[0] / torch.clamp(sums[1], min=1.0)
+    if lb:
+        aux["lb_loss"] = sums[2]
+        total = ce + LB_LOSS_COEF * sums[2]
+    return total, {"ce_loss": ce, "tokens": sums[1], **aux}, grads
 
 
 def make_sharded_train_step(api: ModelApi, opt_cfg: opt.AdamWConfig, shards,
                             *, loss_chunk: int = 256, remat=True,
                             donate: bool = False):
     """``make_train_step`` over the data axis: ``train_step(params,
-    opt_state, batch)`` on this rank's slices (``ModelApi.init(keep=
-    shards.keep)``) and its batch rows (``data.rank_rows``), AdamW elementwise on the slices
-    under the whole tree's gradient norm. On one rank its values are the
-    one-process step's bit for bit."""
-    check_data_parallel(api.cfg, shards.n)
+    opt_state, batch, every_row=False)`` on this rank's slices
+    (``ModelApi.init(keep=shards.keep)``) and its batch rows
+    (``data.rank_rows``; ``every_row`` as in ``sharded_value_and_grad``),
+    AdamW elementwise on the slices under the whole tree's gradient norm.
+    On one rank its values are the one-process step's bit for bit."""
     sharded = shards.sharded()
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, every_row: bool = False):
         loss, aux, grads = sharded_value_and_grad(
-            api, params, batch, shards, loss_chunk=loss_chunk, remat=remat)
+            api, params, batch, shards, every_row=every_row,
+            loss_chunk=loss_chunk, remat=remat)
         params2, opt_state2, om = opt.update(opt_cfg, grads, opt_state,
                                              params, donate=donate,
                                              sharded=sharded)

@@ -21,8 +21,9 @@ collective bounded by a timeout (``torch_mesh_ranks``).
   save's of the gathered state; its restore hands back each slice of the
   one-process restore bit for bit, with the same integrity report.
 * The launcher over 2 gloo ranks, rank 0 in this process; a mesh with
-  ``model`` > 1, a moe config or ``--compress`` over more than one rank,
-  and a group that cannot be built each raise.
+  ``model`` > 1 and a group that cannot be built each raise. (The other
+  families and ``--compress`` over ranks: ``test_torch_train_mesh_
+  families.py``.)
 """
 import argparse
 import filecmp
@@ -53,8 +54,7 @@ from repro_torch.sharding.rules import (DataShards, data_dims,
                                         make_constrain)
 from repro_torch.train import data as data_mod
 from repro_torch.train import optimizer as opt
-from repro_torch.train.train_step import (check_data_parallel,
-                                          make_sharded_train_step,
+from repro_torch.train.train_step import (make_sharded_train_step,
                                           make_train_step)
 from test_torch_train_loop import PARITY
 from test_torch_train_step import to_jax
@@ -404,25 +404,6 @@ def test_a_model_axis_raises():
             make_constrain(mesh, default_rules(mesh))
     data = Mesh(device_grid([CPU] * 4, (4, 1)), ("data", "model"))
     assert make_constrain(data, default_rules(data))(CPU, None) is CPU
-
-
-@pytest.mark.parametrize("arch", ["dbrx-132b", "recurrentgemma-2b",
-                                  "mamba2-2.7b", "llava-next-mistral-7b",
-                                  "whisper-large-v3"])
-def test_other_families_over_data_raise(arch):
-    cfg = get_config(arch).reduced()
-    check_data_parallel(cfg, 1)
-    with pytest.raises(NotImplementedError, match="trains on one rank"):
-        check_data_parallel(cfg, 2)
-    with pytest.raises(NotImplementedError, match="trains on one rank"):
-        launcher.launch(2, _args(arch=arch), cfg)
-
-
-def test_compress_over_data_raises():
-    cfg = get_config("qwen2.5-3b").reduced()
-    check_data_parallel(cfg, 1, compress=True)
-    with pytest.raises(NotImplementedError, match="compression"):
-        launcher.launch(2, _args(compress=True), cfg)
 
 
 def test_no_group_no_fallback(tmp_path):

@@ -147,7 +147,8 @@ def check_hidden_states_and_aux(f):
     assert tuple(h.shape) == f["jaux"]["h"].shape
     assert _frac(h.detach(), f["jaux"]["h"]) < h_tol
     assert set(aux) == ({"lb_loss"} if f["api"].cfg.family in LB_FAMILIES
-                        else set())
+                        else set()) | ({"dropped"} if f["api"].cfg.num_experts
+                                       else set())
     if "lb_loss" in aux:
         np.testing.assert_allclose(float(aux["lb_loss"]),
                                    f["jaux"]["lb_loss"], rtol=LB_RTOL,
@@ -251,6 +252,8 @@ def test_one_train_step(arch):
     keys = {"loss", "ce_loss", "tokens", "grad_norm", "lr"}
     if api.cfg.family in ("dense", "moe", "vlm"):
         keys.add("lb_loss")
+    if api.cfg.num_experts:
+        keys.add("dropped")
     assert set(metrics) == keys
     assert any(not torch.allclose(a, b) for a, b in
                zip(T.leaves(params), T.leaves(params2))), arch

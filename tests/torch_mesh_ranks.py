@@ -1,26 +1,33 @@
-"""Rank bodies of ``test_torch_train_mesh.py``: each runs in a spawned
-process as one gloo rank on the CPU and imports nothing of the JAX
-package. Results go to files under the run's directory: rank 0 writes
-the gathered state and metrics of each case, every rank the elements it
-held."""
+"""Rank bodies of ``test_torch_train_mesh.py`` and
+``test_torch_train_mesh_families.py``: each runs in a spawned process as
+one gloo rank on the CPU and imports nothing of the JAX package. Results
+go to files under the run's directory: rank 0 writes the gathered state
+and metrics of each case, every rank the elements it held."""
 import time
 
 import torch
 import torch.multiprocessing as mp
 
+from repro_torch import rng
 from repro_torch import tree as T
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.priority import Priority
 from repro_torch.device import end_process_group, start_process_group
 from repro_torch.models import get_model
 from repro_torch.models.layers import all_gather_dim
 from repro_torch.reliability import RestoreIntegrity
 from repro_torch.sharding import make_production_mesh
-from repro_torch.sharding.rules import data_shards, strategy_rules
+from repro_torch.sharding.rules import (data_shards, default_rules,
+                                        strategy_rules)
+from repro_torch.train import compression as comp
 from repro_torch.train import data as data_mod
 from repro_torch.train import optimizer as opt
 from repro_torch.train.checkpoint import Checkpointer
-from repro_torch.train.train_step import make_sharded_train_step
+from repro_torch.train.train_step import (make_sharded_train_step,
+                                          make_train_step,
+                                          sharded_value_and_grad,
+                                          value_and_grad)
 
 CPU = torch.device("cpu")
 #: every collective's bound, and a whole run's
@@ -143,3 +150,151 @@ def checkpoint_case(rank, out, params, state, shards) -> None:
                 "report": {k: v for k, v in ck.last_restore_report.items()
                            if k != "stage_s"}},
                f"{out}/restore{rank}.pt")
+
+
+# ---------------------------------------------------------------------------
+# every family and --compress over the data axis
+
+
+def family_batch(api, batch_size: int, i: int):
+    """Step ``i``'s seeded global batch of ``api``'s training inputs
+    (``ModelApi.batch_shapes`` at length SEQ): token ids and labels
+    uniform over the vocabulary, image embeddings and frames normal."""
+    g = torch.Generator().manual_seed(DATA_SEED * 1000 + i)
+    shapes = api.batch_shapes(ShapeConfig("train", SEQ, batch_size,
+                                          "train"))
+    return {k: (torch.randint(0, api.cfg.vocab_size, shape, generator=g)
+                if dtype == torch.int64
+                else torch.randn(shape, generator=g).to(dtype))
+            for k, (shape, dtype) in shapes.items()}
+
+
+def family_steps(api, batch_size: int, compress: bool, shards=None,
+                 rank: int = 0, world: int = 1):
+    """STEPS steps from the seed-0 parameters over ``family_batch``'s
+    batches: the sharded step on this rank's slices and rows with
+    ``shards``, else the one-process step. ``compress``: the launcher's
+    ``--compress`` step (error-feedback int8 gradients). Returns
+    (params, state, per-step metrics)."""
+    ocfg = opt.AdamWConfig(**OCFG)
+    keep = shards.keep if shards is not None else None
+    params = api.init(0, CPU, keep=keep)
+    state = opt.init(params)
+    ccfg = comp.CompressionConfig()
+    ef = comp.init_state(params)
+    every = data_mod.every_row(batch_size, world)
+    sharded = shards.sharded() if shards is not None else None
+    dims = shards.flat_dims if shards is not None else None
+    plain = (make_sharded_train_step(api, ocfg, shards)
+             if shards is not None else make_train_step(api, ocfg))
+    metrics = []
+    for i in range(STEPS):
+        batch = data_mod.rank_rows(family_batch(api, batch_size, i), rank,
+                                   world)
+        if not compress:
+            params, state, m = (plain(params, state, batch, every)
+                                if shards is not None
+                                else plain(params, state, batch))
+        else:
+            if shards is not None:
+                loss, aux, grads = sharded_value_and_grad(
+                    api, params, batch, shards, every_row=every)
+            else:
+                loss, aux, grads = value_and_grad(api, params, batch)
+            grads, ef = comp.compress_grads(grads, ef, ccfg, dims=dims)
+            params, state, om = opt.update(ocfg, grads, state, params,
+                                           sharded=sharded)
+            m = {"loss": loss, **aux, **om}
+        metrics.append({k: float(v) for k, v in m.items()})
+    return params, state, metrics
+
+
+def compress_inputs(api, seed: int):
+    """A seeded whole gradient and residual over ``api``'s parameter
+    shapes (normal, every leaf on its own scale), float32."""
+    g = torch.Generator().manual_seed(seed)
+    flat, tdef = T.flatten_with_def(api.descs())
+    grads, ef = [], []
+    for n, (_, desc) in enumerate(flat):
+        shape = desc.shape
+        scale = 10.0 ** (n % 5 - 2)
+        grads.append(torch.randn(shape, generator=g) * scale)
+        ef.append(torch.randn(shape, generator=g) * scale * 1e-2)
+    return tdef.unflatten(grads), tdef.unflatten(ef)
+
+
+#: ``compress_grads``' wire in the exactness case
+COMPRESS_WIRE = "lanes_ref"
+COMPRESS_KEY = 31
+
+
+def compress_case(api, shards, per_channel: bool):
+    """``compress_grads`` with a ``lanes_ref`` wire on this rank's slices
+    of ``compress_inputs``; with ``shards`` None on the whole leaves.
+    Returns every output whole: the codes and scales (``quantize``), the
+    stored wire codes (``wire_write``), the delivered gradients, the
+    residuals and the ``WriteStats``' fields."""
+    cfg = comp.CompressionConfig(wire_backend=COMPRESS_WIRE,
+                                 per_channel=per_channel)
+    key = rng.PRNGKey(COMPRESS_KEY)
+    grads, ef = compress_inputs(api, 5)
+    if shards is not None:
+        flat, tdef = T.flatten_with_def(grads)
+        grads = tdef.unflatten([shards.keep(i, x)
+                                for i, (_, x) in enumerate(flat)])
+        ef = tdef.unflatten([shards.keep(i, x) for i, x in
+                             enumerate(T.leaves(ef))])
+        dims = shards.flat_dims
+    else:
+        dims = [None] * len(T.leaves(grads))
+    out, res, stats = comp.compress_grads(grads, ef, cfg, key,
+                                          with_stats=True, dims=dims)
+    codes, scales, words = [], [], []
+    for i, (g, e, d) in enumerate(zip(T.leaves(grads), T.leaves(ef),
+                                      dims)):
+        q, scale = comp.quantize(g + e, cfg.bits, per_channel=per_channel,
+                                 dim=d)
+        stored, _ = comp.wire_write(rng.fold_in(key, i), q, cfg, d)
+        if d is not None:
+            q, stored = all_gather_dim(q, d), all_gather_dim(stored, d)
+            if scale.dim() and d == 0:
+                scale = all_gather_dim(scale, 0)
+        codes.append(q)
+        scales.append(scale)
+        words.append(stored)
+    if shards is not None:
+        out, res = whole(out, shards), whole(res, shards)
+    return {"codes": codes, "scales": scales, "words": words,
+            "grads": T.leaves(out), "residual": T.leaves(res),
+            "stats": {k: v.item() for k, v in vars(stats).items()}}
+
+
+def family_cases(rank: int, world: int, init: str, out: str, cases,
+                 compress_arch: str) -> None:
+    """Each (name, config, global batch, compress) case: STEPS sharded
+    steps, rank 0 saving the gathered parameters and moments and the
+    metrics; then ``compress_case`` on ``compress_arch``'s slices, per
+    tensor and per channel, rank 0 saving it."""
+    torch.set_num_threads(1)
+    start_process_group(rank, world, init, CPU, TIMEOUT_S)
+    try:
+        mesh = make_production_mesh(shape=(world, 1), device=CPU)
+        for name, cfg, batch_size, compress in cases:
+            api = get_model(cfg)
+            shards = data_shards(mesh, default_rules(mesh),
+                                 api.param_axes(), api.param_shapes())
+            params, state, metrics = family_steps(api, batch_size, compress,
+                                                  shards, rank, world)
+            tree = {"params": whole(params, shards),
+                    "m": whole(state.m, shards), "v": whole(state.v, shards)}
+            if rank == 0:
+                torch.save({"metrics": metrics, **tree}, f"{out}/{name}.pt")
+        api = get_model(get_config(compress_arch).reduced())
+        shards = data_shards(mesh, default_rules(mesh), api.param_axes(),
+                             api.param_shapes())
+        for per_channel in (False, True):
+            got = compress_case(api, shards, per_channel)
+            if rank == 0:
+                torch.save(got, f"{out}/compress_{per_channel}.pt")
+    finally:
+        end_process_group()
