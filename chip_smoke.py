@@ -358,18 +358,23 @@ each printed as one JSON line:
                     repro_torch.examples.train_lm_extent --steps 60 on
                     the card (saves, the restore at step 30, its "must
                     learn" check).
- 32b. train_mesh  — the data-axis training path on a one-rank nccl group
-                    (the (1, 1) production mesh, the baseline rules'
-                    DataShards): qwen2.5-3b at the train phase's shapes
-                    (36 layers, seq 4096, batch 2, full remat)
-                    MESH_STEPS steps through make_sharded_train_step
-                    against the plain steps from the same seeded state
-                    and batches, every parameter and moment (two int64
-                    sums of each leaf's bits) and every metric equal
-                    after each step; each step's ms, the group's start
-                    (its first collective builds the communicator), each
-                    path's peak memory beside what earlier phases left
-                    allocated, and nvidia-smi's line.
+ 32b. train_mesh  — the (data, model) training path on a one-rank nccl
+                    group (the (1, 1) production mesh with its axis
+                    subgroups, the baseline rules' MeshShards: FSDP over
+                    data, the dense family's heads, mlp and vocabulary
+                    tensor parallel over model): qwen2.5-3b at the train
+                    phase's shapes (MESH_LAYERS of 36 layers, seq 4096,
+                    batch 2, full remat) MESH_STEPS steps through
+                    make_sharded_train_step against the plain steps from
+                    the same seeded state and batches, every parameter
+                    and moment (two int64 sums of each leaf's bits) and
+                    every metric equal after each step; the collectives
+                    the model-axis code issued on the model group (must
+                    be > 0); each step's ms against the plain step's,
+                    the group's start (its first collective builds the
+                    communicator), each path's peak memory beside what
+                    earlier phases left allocated, and nvidia-smi's
+                    line.
  33. tools        — the port's tools on the card: repro_torch.launch.
                     dryrun.smoke_backends("cuda") (a bf16 (33,) and an
                     int8 (129,) write through every memory backend; the
@@ -4915,8 +4920,9 @@ def phase_train_launcher(device):
     """The port's launch/train.py main through argv: qwen2.5-3b at full
     width, depth cut to CKPT_LAYERS, --compress, an asynchronous EXTENT
     checkpoint at step 2 of 3 (seq 2048, batch 2), through the rank path
-    (one nccl rank on the card): its extent_write launches (one per
-    changed moment leaf) held against its report, its stage seconds
+    (one nccl rank on the card, ``--mesh-shape 1x1``: the (data, model)
+    path with the model axis's code running): its extent_write launches
+    (one per changed moment leaf) held against its report, its stage seconds
     printed; its leaf files byte-identical to the one-process loop's
     (``launcher_replay``, uncounted). That checkpoint restored with the
     400 K integrity pass through the rank path (``Checkpointer.restore
@@ -4937,7 +4943,7 @@ def phase_train_launcher(device):
     from repro_torch.models import get_model
     from repro_torch.reliability import RestoreIntegrity
     from repro_torch.sharding import make_production_mesh
-    from repro_torch.sharding.rules import data_shards, strategy_rules
+    from repro_torch.sharding.rules import mesh_shards, strategy_rules
     from repro_torch.train.checkpoint import Checkpointer
     root = CKPT_DIR / "launcher"
     plain_root = CKPT_DIR / "launcher_one_process"
@@ -4955,7 +4961,8 @@ def phase_train_launcher(device):
         with contextlib.redirect_stdout(buf):
             out = launch_train.main([
                 "--compress", "--ckpt-dir", str(root), "--ckpt-every", "2",
-                "--steps", "3", "--seq", "2048", "--batch", "2"])
+                "--steps", "3", "--seq", "2048", "--batch", "2",
+                "--mesh-shape", "1x1"])
     finally:
         launch_train.get_config = get_config
     torch.cuda.synchronize()
@@ -5001,8 +5008,7 @@ def phase_train_launcher(device):
     try:
         mesh = make_production_mesh(shape=(1, 1), device=dev)
         api = get_model(cfg)
-        shards = data_shards(mesh, strategy_rules(mesh, "baseline"),
-                             api.param_axes(), api.param_shapes())
+        shards = mesh_shards(mesh, strategy_rules(mesh, "baseline"), api)
         ck = Checkpointer(str(root), extent_policy=launch_train.moments_low,
                           extent_backend="cuda", device=dev)
         got, extra = ck.restore(like, integrity=integrity,
@@ -5058,7 +5064,7 @@ def phase_train_launcher(device):
           "reduced": {"num_layers": f"{CKPT_LAYERS} of "
                                     f"{get_config('qwen2.5-3b').num_layers}"},
           "argv": "--compress --ckpt-every 2 --steps 3 --seq 2048 "
-                  "--batch 2", "ranks": 1, "lines": lines,
+                  "--batch 2 --mesh-shape 1x1", "ranks": 1, "lines": lines,
           "seconds": launcher_s,
           "save": {k: rep[k] for k in (
               "step", "leaves", "skipped_leaves", "bytes", "energy_pj",
@@ -5142,20 +5148,24 @@ def plain_and_sharded(api, ocfg, batches, shards, device):
 
 
 def phase_train_mesh(device, plain_step_ms: float):
-    """The port's training over the data axis on one nccl rank: a group
-    of one on the card (``start_process_group``; its first collective,
-    which builds the communicator, timed apart), the (1, 1) production
-    mesh over it, the baseline rules' ``DataShards`` (the embed dimension
-    on ``data``; the norm scales and attention biases replicated), and
-    qwen2.5-3b at MESH_LAYERS of its 36 layers and the train phase's
-    shapes (seq 4096, batch 2, full remat, donated state) through
-    ``make_sharded_train_step`` for
-    MESH_STEPS steps against the plain ``make_train_step`` steps from the
-    same seeded state over the same batches (``plain_and_sharded``: every
-    parameter, moment and metric equal bit for bit after each step).
-    Each step's ms (CUDA events) and each path's peak memory (beside what
-    earlier phases left allocated) are printed with the train phase's
-    steady step (at 36 layers)."""
+    """The port's training over a (data, model) mesh on one nccl rank: a
+    group of one on the card (``start_process_group``; its first
+    collective, which builds the communicator, timed apart), the (1, 1)
+    production mesh over it with its data and model subgroups, the
+    baseline rules' ``MeshShards`` (the embed dimension on ``data``; the
+    heads, the MLP's hidden units and the vocabulary on ``model``, whose
+    tensor-parallel code runs on a group of one: its copies, row-parallel
+    sums, vocabulary-parallel embedding and loss; the norm scales and kv
+    projections whole), and qwen2.5-3b at MESH_LAYERS of its 36 layers
+    and the train phase's shapes (seq 4096, batch 2, full remat, donated
+    state) through ``make_sharded_train_step`` for MESH_STEPS steps
+    against the plain ``make_train_step`` steps from the same seeded
+    state over the same batches (``plain_and_sharded``: every parameter,
+    moment and metric equal bit for bit after each step). The
+    collectives issued on the model group (``model_collectives``; must
+    be > 0), each step's ms (CUDA events) against the plain step's and
+    each path's peak memory (beside what earlier phases left allocated)
+    are printed with the train phase's steady step (at 36 layers)."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -5163,8 +5173,10 @@ def phase_train_mesh(device, plain_step_ms: float):
     from repro_torch.device import (end_process_group, local_rendezvous,
                                     start_process_group)
     from repro_torch.models import get_model
+    from repro_torch.models.layers import (model_collectives,
+                                           reset_model_collectives)
     from repro_torch.sharding import make_production_mesh
-    from repro_torch.sharding.rules import data_shards, default_rules
+    from repro_torch.sharding.rules import default_rules, mesh_shards
     from repro_torch.train import data as data_mod
     from repro_torch.train import optimizer as opt
     cfg = dataclasses.replace(get_config("qwen2.5-3b"),
@@ -5181,22 +5193,32 @@ def phase_train_mesh(device, plain_step_ms: float):
         torch.cuda.synchronize()
         group_s = time.perf_counter() - t0
         mesh = make_production_mesh(shape=(1, 1), device=dev)
-        shards = data_shards(mesh, default_rules(mesh), api.param_axes(),
-                             api.param_shapes())
+        shards = mesh_shards(mesh, default_rules(mesh), api)
+        axis = shards.model_axis
         batches = [data_mod.make_batch(dcfg, i, dev)
                    for i in range(MESH_STEPS)]
+        reset_model_collectives()
         paths = plain_and_sharded(api, ocfg, batches, shards, dev)
+        collectives = model_collectives()
     finally:
         end_process_group()
     phase_s = time.perf_counter() - t0
     launches = read_launches()
-    n_sharded = sum(shards.sharded())
+    if not (axis.heads and axis.mlp and axis.vocab) or collectives <= 0:
+        raise AssertionError(f"train_mesh: the model-axis code did not run "
+                             f"({axis}, {collectives} collectives)")
+    cuts = {a: sum(getattr(c, a) is not None for c in shards.flat_dims)
+            for a in ("data", "model")}
     emit({"phase": "train_mesh", "arch": cfg.name, "layers": cfg.num_layers,
           "reduced": {"num_layers": f"{MESH_LAYERS} of 36"},
           "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "remat": "full",
           "backend": "nccl", "ranks": 1, "mesh": mesh.shape,
-          "rules": "baseline", "sharded_leaves": n_sharded,
-          "replicated_leaves": len(shards.flat_dims) - n_sharded,
+          "rules": "baseline", "leaves_cut_on": cuts,
+          "whole_leaves": len(shards.flat_dims) - sum(shards.sharded()),
+          "model_axis": {"heads": axis.heads, "mlp": axis.mlp,
+                         "vocab": axis.vocab},
+          "model_group_collectives": collectives,
+          "model_group_collectives_per_step": collectives / MESH_STEPS,
           "step_ms": paths["sharded"]["step_ms"],
           "plain_step_ms": paths["plain"]["step_ms"],
           "train_phase_step_ms": plain_step_ms,
@@ -5255,7 +5277,7 @@ def phase_train_mesh_families(device):
     from repro_torch.models import get_model
     from repro_torch.reliability import lifetime
     from repro_torch.sharding import make_production_mesh
-    from repro_torch.sharding.rules import data_shards, default_rules
+    from repro_torch.sharding.rules import default_rules, mesh_shards
     from repro_torch.train import compression as comp
     from repro_torch.train import data as data_mod
     from repro_torch.train import optimizer as opt
@@ -5281,8 +5303,7 @@ def phase_train_mesh_families(device):
         mesh = make_production_mesh(shape=(1, 1), device=dev)
 
         def shards_of(api):
-            return data_shards(mesh, default_rules(mesh), api.param_axes(),
-                               api.param_shapes())
+            return mesh_shards(mesh, default_rules(mesh), api)
 
         # (a), (b): full width
         full = (("recurrentgemma-2b", get_config("recurrentgemma-2b"),
@@ -5314,13 +5335,13 @@ def phase_train_mesh_families(device):
         key = rng.PRNGKey(MESH_WIRE_KEY)
         batch = {k: v.to(dev) for k, v in train_batch(api.cfg, 2).items()}
 
-        def compressed(params, vg, dims, sharded):
+        def compressed(params, vg, dims, counted):
             ef = comp.init_state(params)
             loss, aux, grads = vg(params)
             grads, ef, st = comp.compress_grads(grads, ef, ccfg, key,
                                                 with_stats=True, dims=dims)
             params, state, om = opt.update(ocfg, grads, opt.init(params),
-                                           params, sharded=sharded)
+                                           params, counted=counted)
             return ((params, state, ef), {"loss": float(loss), **{
                 k: float(v) for k, v in {**aux, **om}.items()}},
                 {k: float(v) for k, v in vars(st).items()})
@@ -5332,7 +5353,7 @@ def phase_train_mesh_families(device):
         got = compressed(api.init(0, dev, keep=shards.keep),
                          lambda p: sharded_value_and_grad(api, p, batch,
                                                           shards),
-                         shards.flat_dims, shards.sharded())
+                         shards.flat_dims, shards.counted())
         if not (all(torch.equal(a, b) for a, b in zip(T.leaves(got[0]),
                                                        T.leaves(want[0])))
                 and got[1:] == want[1:]):

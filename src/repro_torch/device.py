@@ -7,7 +7,8 @@ the port never falls back to the CPU on its own.
 A program over several devices runs one process a device, joined by a
 ``torch.distributed`` group: ``nccl`` on CUDA, where rank ``r`` binds
 ``cuda:r``, ``gloo`` on the CPU. A group that cannot be built raises;
-nothing carries on as one process.
+nothing carries on as one process. ``new_subgroups`` cuts the group
+into the lines of a mesh's axes (``sharding.mesh.axis_groups``).
 """
 from __future__ import annotations
 
@@ -71,6 +72,19 @@ def end_process_group() -> None:
     """Leave the group (a no-op without one)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def new_subgroups(rank_lists) -> Optional[dist.ProcessGroup]:
+    """Each list of ranks made a process subgroup, in the order given
+    (every rank of the group makes the same calls); the one holding this
+    rank, or None."""
+    rank = dist.get_rank()
+    mine = None
+    for ranks in rank_lists:
+        group = dist.new_group([int(r) for r in ranks])
+        if rank in ranks:
+            mine = group
+    return mine
 
 
 def rank_and_world() -> tuple:

@@ -5,31 +5,37 @@
       --device cpu --steps 50 --ckpt-dir ck
   python -m repro_torch.launch.train --arch qwen2.5-3b --seq 4096 \
       --batch 2 --steps 10                       # full width, on the cards
+  python -m repro_torch.launch.train --mesh-shape 1x1 ...  # (data, model)
 
 Runs on CUDA unless ``--device cpu``. The launcher starts one rank a
 CUDA device present (rank 0 in this process, the others spawned with
 ``torch.multiprocessing``), joined by an ``nccl`` group; ``--reduced``
 (the small float32 config) runs one rank, as the reference's runs on its
 one-device host mesh, and ``--device cpu`` one ``gloo`` rank. Every
-world size, 1 included, takes the same path: the ranks form a (data=N,
-model=1) mesh, each holds its slices of the parameters and moments under
-``--rules`` (``baseline`` cuts the embed dimension, FSDP) and trains on
-its rows of each global batch (an MoE layer dispatches over the group's
-rows, ``--compress`` compresses each rank's slice of the gradient as one
-process compresses the whole), and rank 0 prints. The loop wires
-every training piece together: the synthetic data pipeline, AdamW,
-error-feedback int8 gradients (``--compress``), asynchronous EXTENT
-checkpoints every ``--ckpt-every`` steps (rank 0 gathers each leaf and
-writes the optimizer moments at LOW through its device's backend,
-``cuda`` on the card), and the heartbeat and straggler monitors. The
-step updates the parameters and the optimizer state in place, as the
-reference's donates them. It prints the reference's lines.
+world size, 1 included, takes the same path: the ranks form a (data=D,
+model=M) mesh (``--mesh-shape DxM``, the reference dryrun's syntax,
+default (world, 1); D·M must be the world), each holds its (d, m) blocks
+of the parameters and moments under ``--rules`` (``baseline`` cuts the
+embed dimension over data, FSDP, and the dense family's heads, mlp and
+vocabulary over model, tensor parallel; ``serve_tp_only`` and
+``serve_moe_2d`` keep the model cuts only) and trains on its data row's
+rows of each global batch (an MoE layer dispatches over the data
+group's rows, ``--compress`` compresses each rank's block of the
+gradient as one process compresses the whole), and rank 0 prints. The
+loop wires every training piece together: the synthetic data pipeline,
+AdamW, error-feedback int8 gradients (``--compress``), asynchronous
+EXTENT checkpoints every ``--ckpt-every`` steps (rank 0 gathers each
+leaf over both axes and writes the optimizer moments at LOW through its
+device's backend, ``cuda`` on the card), and the heartbeat and
+straggler monitors. The step updates the parameters and the optimizer
+state in place, as the reference's donates them. It prints the
+reference's lines.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +48,7 @@ from repro_torch.device import (end_process_group, local_rendezvous,
 from repro_torch.memory import default_backend
 from repro_torch.models import get_model
 from repro_torch.sharding import make_production_mesh
-from repro_torch.sharding.rules import data_shards, strategy_rules
+from repro_torch.sharding.rules import mesh_shards, strategy_rules
 from repro_torch.train import compression as comp
 from repro_torch.train import data as data_mod
 from repro_torch.train import optimizer as opt
@@ -72,7 +78,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--rules", default="baseline")
+    ap.add_argument("--rules", default="baseline",
+                    choices=("baseline", "serve_tp_only", "serve_moe_2d"))
+    ap.add_argument("--mesh-shape", default=None,
+                    help="the (data, model) mesh as DxM, e.g. 1x2 "
+                         "(default: every rank on data)")
     ap.add_argument("--remat", default="full",
                     choices=("full", "selective", "none"))
     ap.add_argument("--compress", action="store_true")
@@ -95,12 +105,29 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     return launch(world, args, cfg)
 
 
+def mesh_shape(spec: Optional[str], world: int) -> Tuple[int, int]:
+    """``--mesh-shape``'s (data, model) over ``world`` ranks: ``DxM``, or
+    (world, 1) without one; a shape that is not the world raises."""
+    if spec is None:
+        return world, 1
+    try:
+        d, m = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh-shape {spec!r}: expected DxM, e.g. 1x2")
+    if d < 1 or m < 1 or d * m != world:
+        raise ValueError(f"--mesh-shape {spec} covers {d * m} rank(s); "
+                         f"the group has {world}")
+    return d, m
+
+
 def launch(world: int, args: argparse.Namespace, cfg,
            init_method: Optional[str] = None, timeout_s: float = 600.0
            ) -> Dict[str, Any]:
     """``world`` ranks of ``train_rank`` over ``cfg``: rank 0 here, ranks
     1.. spawned (each binds its own device); rank 0's result. A rank that
-    fails ends the others."""
+    fails ends the others; a ``--mesh-shape`` that is not the world
+    raises before any starts."""
+    mesh_shape(args.mesh_shape, world)
     init_method = init_method or local_rendezvous()
     rest = (world, init_method, args, cfg, timeout_s)
     ctx = (mp.start_processes(_spawned_rank, args=rest, nprocs=world - 1,
@@ -138,11 +165,11 @@ def train_rank(rank: int, world: int, init_method: str,
 def _train(rank: int, world: int, dev: torch.device,
            args: argparse.Namespace, cfg) -> Dict[str, Any]:
     say = print if rank == 0 else (lambda *a, **k: None)
-    mesh = make_production_mesh(shape=(world, 1), device=dev)
+    mesh = make_production_mesh(shape=mesh_shape(args.mesh_shape, world),
+                                device=dev)
     api = get_model(cfg)
-    shards = data_shards(mesh, strategy_rules(mesh, args.rules),
-                         api.param_axes(), api.param_shapes())
-    every_row = data_mod.every_row(args.batch, world)
+    shards = mesh_shards(mesh, strategy_rules(mesh, args.rules), api)
+    every_row = data_mod.every_row(args.batch, shards.n)
     remat = {"full": True, "selective": "selective", "none": False}[
         args.remat]
     params = api.init(0, dev, keep=shards.keep)
@@ -154,7 +181,7 @@ def _train(rank: int, world: int, dev: torch.device,
     state = opt.init(params)
     ccfg = comp.CompressionConfig(enable=args.compress)
     ef = comp.init_state(params) if args.compress else None
-    sharded = shards.sharded()
+    counted = shards.counted()
 
     if args.compress:
         def step(params, state, ef, batch):
@@ -164,7 +191,7 @@ def _train(rank: int, world: int, dev: torch.device,
             grads, ef = comp.compress_grads(grads, ef, ccfg,
                                             dims=shards.flat_dims)
             params, state, om = opt.update(ocfg, grads, state, params,
-                                           donate=True, sharded=sharded)
+                                           donate=True, counted=counted)
             return params, state, ef, {"loss": loss, **om}
     else:
         base = make_sharded_train_step(api, ocfg, shards, remat=remat,
@@ -177,7 +204,8 @@ def _train(rank: int, world: int, dev: torch.device,
     hb, sm = HeartbeatMonitor(), StragglerMonitor()
     it = data_mod.DataIterator(data_mod.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
-        global_batch=args.batch), device=dev, rank=rank, world=world)
+        global_batch=args.batch), device=dev,
+        data_index=mesh.index("data"), data_size=shards.n)
 
     losses = []
     for i in range(args.steps):

@@ -25,7 +25,7 @@ from repro_torch.models.layers import (init_from_descs, no_constrain,
                                        unembed)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "float64": torch.float64}
 
 #: family -> the module serving it
 _FAMILIES = {"dense": transformer, "moe": transformer, "hybrid": rglru,
@@ -89,26 +89,32 @@ class ModelApi:
 
     def forward_hidden(self, params, batch: Dict[str, torch.Tensor], *,
                        remat=True, constrain=no_constrain, gather=no_gather,
-                       moe_group=None):
+                       moe_group=None, model_axis=None):
         """(hidden states (B, S_total, D), aux dict) of a training batch;
         the transformer families' aux holds ``lb_loss``, and with experts
         ``dropped``. ``gather(name, subtree)`` makes the leaves of a
         data-sharded tree whole where each family uses them;
         ``moe_group`` (a ``moe.TokenGroup``) reaches a model with
-        experts, whose dispatch then serves the group's rows."""
+        experts, whose dispatch then serves the group's rows;
+        ``model_axis`` (a ``layers.ModelAxis``) cuts the dense family
+        over the model axis."""
         kw = dict(remat=remat, constrain=constrain, gather=gather)
         if moe_group is not None and self.cfg.num_experts:
             kw["moe_group"] = moe_group
+        if model_axis is not None:
+            kw["model_axis"] = model_axis
         if self.cfg.family in _BATCH_PREFILL:
             return self._module.hidden_forward(params, batch, self.cfg, **kw)
         return self._module.hidden_forward(params, batch["tokens"], self.cfg,
                                            **kw)
 
-    def logits(self, params, h: torch.Tensor) -> torch.Tensor:
-        """float32 logits of hidden states (B, S, D)."""
+    def logits(self, params, h: torch.Tensor, model_axis=None
+               ) -> torch.Tensor:
+        """float32 logits of hidden states (B, S, D); over a
+        ``model_axis`` that cuts the vocabulary, this rank's columns."""
         if self.cfg.family == "audio":
             return whisper.logits_fn(params, h, self.cfg)
-        return unembed(params["embed"], h, self.cfg)
+        return unembed(params["embed"], h, self.cfg, model_axis)
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], max_seq: int):
         if self.cfg.family in _BATCH_PREFILL:

@@ -13,7 +13,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamDesc, rope, softcap
+from repro_torch.models.layers import ModelAxis, ParamDesc, rope, softcap
 
 NEG_INF = -2.0e38
 #: axes of a K or V cache leaf (n_layers, B, C, Kh, h)
@@ -40,24 +40,59 @@ def attn_descs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDesc]:
     return d
 
 
-def qkv_project(p, x, cfg: ModelConfig, positions):
-    """x: (B,S,D) -> q (B,S,H,h), k/v (B,S,K,h), rope applied."""
+def qkv_project(p, x, cfg: ModelConfig, positions,
+                axis: Optional[ModelAxis] = None):
+    """x: (B,S,D) -> q (B,S,H,h), k/v (B,S,K,h), rope applied. Over a
+    ``ModelAxis`` that cuts the heads, q holds this rank's H/M heads and
+    k/v the kv heads they meet (``local_kv``); ``wk``, ``wv`` and their
+    biases are whole on every rank and enter, as x does, through
+    ``CopyToModel``, so their gradients arrive whole."""
     B, S, D = x.shape
-    q = (x @ p["wq"].reshape(D, -1)).reshape(B, S, cfg.num_heads, -1)
-    k = (x @ p["wk"].reshape(D, -1)).reshape(B, S, cfg.num_kv_heads, -1)
-    v = (x @ p["wv"].reshape(D, -1)).reshape(B, S, cfg.num_kv_heads, -1)
+    kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
+    cut = axis is not None and axis.heads
+    if cut:
+        x = axis.copy_in(x)
+        kv = {n: axis.copy_in(w) for n, w in kv.items()}
+    H, K = p["wq"].shape[-2], kv["wk"].shape[-2]
+    q = (x @ p["wq"].reshape(D, -1)).reshape(B, S, H, -1)
+    k = (x @ kv["wk"].reshape(D, -1)).reshape(B, S, K, -1)
+    v = (x @ kv["wv"].reshape(D, -1)).reshape(B, S, K, -1)
     if cfg.qkv_bias:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+        k = k + kv["bk"]
+        v = v + kv["bv"]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if cut:
+        k, v = local_kv(k, v, cfg, axis.index * H, H)
+    return q, k, v
 
 
-def out_project(p, a: torch.Tensor) -> torch.Tensor:
-    """(B,S,H,h) -> (B,S,D) through wo (H,h,D)."""
+def local_kv(k, v, cfg: ModelConfig, q0: int, n_q: int):
+    """The kv heads (B,S,K,h) that query heads ``[q0, q0 + n_q)`` meet:
+    global query head i meets kv head i // (H / K). Where each kv head
+    meets an equal run of them (whole groups, or one kv head shared by
+    several ranks), its contiguous kv heads (all of k and v where they
+    meet every kv head); else one kv head per query head, gathered."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    idx = [(q0 + j) // G for j in range(n_q)]
+    first, n = idx[0], idx[-1] - idx[0] + 1
+    if n == k.shape[2]:
+        return k, v
+    if n_q % n == 0 and idx == [first + j // (n_q // n)
+                                for j in range(n_q)]:
+        return k.narrow(2, first, n), v.narrow(2, first, n)
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def out_project(p, a: torch.Tensor, axis: Optional[ModelAxis] = None
+                ) -> torch.Tensor:
+    """(B,S,H,h) -> (B,S,D) through wo (H,h,D); row-parallel over a
+    ``ModelAxis`` that cuts the heads."""
     B, S, H, h = a.shape
-    return a.reshape(B, S, H * h) @ p["wo"].reshape(H * h, -1)
+    out = a.reshape(B, S, H * h) @ p["wo"].reshape(H * h, -1)
+    return axis.reduce_out(out) if axis is not None and axis.heads else out
 
 
 def sdpa_block(q, k, v, mask: Optional[torch.Tensor], scale: float,

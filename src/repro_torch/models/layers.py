@@ -13,6 +13,16 @@ process group a leaf may be held as a slice of one dimension; the
 model's ``gather(name, subtree)`` hook (``no_gather`` on one process)
 makes it whole where it is used, through ``GatherSlice``, whose backward
 reduce-scatters the gradient back onto the slice.
+
+Over the ``model`` axis (``ModelAxis``) the dense family is tensor
+parallel, Megatron-style, wherever the rules cut a block: a rank holds
+its share of the attention heads, the MLP's hidden units and the
+vocabulary. ``CopyToModel`` (identity forward, all-reduce backward)
+leads into a cut block and ``ReduceFromModel`` (all-reduce forward,
+identity backward) sums its row-parallel product out of it; the
+embedding looks up the rank's vocabulary rows and sums, the logits are
+the rank's vocabulary columns. Every model-axis collective adds one to
+``model_collectives()``.
 """
 from __future__ import annotations
 
@@ -96,49 +106,140 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
 
 
-def all_gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """The group's slices of one tensor, rank ``r``'s ``x`` at block
-    ``r`` of dimension ``dim``: a new contiguous tensor."""
-    n = dist.get_world_size()
+def all_gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The slices of one tensor over ``group`` (default: the whole
+    group), its rank ``r``'s ``x`` at block ``r`` of dimension ``dim``: a
+    new contiguous tensor."""
+    n = dist.get_world_size(group)
     out = x.new_empty(n * x.numel())
-    _ALL_GATHER(out, x.reshape(-1))
+    _ALL_GATHER(out, x.reshape(-1), group=group)
     shape = x.shape[:dim] + (n * x.shape[dim],) + x.shape[dim + 1:]
     return out.view((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
 
 
-def reduce_scatter_dim(g: torch.Tensor, dim: int) -> torch.Tensor:
-    """The sum over the group of ``g`` (whole on every rank), cut to this
+def reduce_scatter_dim(g: torch.Tensor, dim: int, group=None
+                       ) -> torch.Tensor:
+    """The sum over ``group`` of ``g`` (whole on every rank), cut to this
     rank's block of dimension ``dim``."""
-    n = dist.get_world_size()
+    n = dist.get_world_size(group)
     parts = g.reshape(g.shape[:dim] + (n, g.shape[dim] // n)
                       + g.shape[dim + 1:]).movedim(dim, 0)
     out = g.new_empty(parts.shape[1:])
-    _REDUCE_SCATTER(out.view(-1), parts.reshape(-1))
+    _REDUCE_SCATTER(out.view(-1), parts.reshape(-1), group=group)
     return out
 
 
 class GatherSlice(torch.autograd.Function):
-    """Forward: all-gather a slice along ``dim``; backward: reduce-scatter
-    (sum) the whole gradient onto the slice."""
+    """Forward: all-gather a slice along ``dim`` over ``group``;
+    backward: reduce-scatter (sum) the whole gradient onto the slice."""
 
     @staticmethod
-    def forward(ctx, x, dim: int):
-        ctx.dim = dim
-        return all_gather_dim(x, dim)
+    def forward(ctx, x, dim: int, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter_dim(g, ctx.dim), None
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
 
 
-def gather_slices(tree: Any, dims: Any, lead: int = 0) -> Any:
-    """Each leaf of ``tree`` whole: a leaf whose entry in ``dims`` (a tree
-    of the same structure) is a dimension is gathered along it less
-    ``lead`` (1 for the layers of a stack ``unstack`` took apart), a
-    leaf whose entry is None passes through."""
+def gather_slices(tree: Any, dims: Any, lead: int = 0, group=None) -> Any:
+    """Each leaf of ``tree`` whole over ``group``: a leaf whose entry in
+    ``dims`` (a tree of the same structure) is a dimension is gathered
+    along it less ``lead`` (1 for the layers of a stack ``unstack`` took
+    apart), a leaf whose entry is None passes through."""
     return T.tree_map(
-        lambda x, d: x if d is None else GatherSlice.apply(x, d - lead),
+        lambda x, d: (x if d is None
+                      else GatherSlice.apply(x, d - lead, group)),
         tree, dims)
+
+
+# ---------------------------------------------------------------------------
+# the model axis: tensor parallelism of the dense family
+
+_MODEL_COLLECTIVES = [0]
+
+
+def model_collectives() -> int:
+    """Collectives issued on a model axis since the last
+    ``reset_model_collectives``."""
+    return _MODEL_COLLECTIVES[0]
+
+
+def reset_model_collectives() -> None:
+    _MODEL_COLLECTIVES[0] = 0
+
+
+def _model_all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
+                      ) -> torch.Tensor:
+    """``t`` reduced over ``group`` into a new tensor."""
+    out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=group)
+    _MODEL_COLLECTIVES[0] += 1
+    return out
+
+
+class CopyToModel(torch.autograd.Function):
+    """Into a tensor-parallel block: the identity forward, the gradient
+    summed over the model group backward (each rank's consumers see part
+    of the block)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_all_reduce(g, ctx.group), None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """Out of a tensor-parallel block: the ranks' partial sums added
+    forward, the (replicated) gradient passed through backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _model_all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The ``model`` axis of a (data, model) mesh as the dense forward
+    sees it: this rank's process subgroup along it, its index ``index``
+    of ``size``, and which blocks the rules cut over it (``heads``: the
+    attention's query heads, with ``wq``, ``bq`` and ``wo``; ``mlp``:
+    the MLP's hidden units; ``vocab``: the embedding's rows and the
+    unembedding's columns). A block the rules do not cut runs whole on
+    every rank, as on one process."""
+    group: Any
+    index: int
+    size: int
+    heads: bool
+    mlp: bool
+    vocab: bool
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        return CopyToModel.apply(x, self.group)
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        return ReduceFromModel.apply(x, self.group)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum over the group (no gradient)."""
+        return _model_all_reduce(x.detach(), self.group, dist.ReduceOp.MAX)
+
+    def local(self, ids: torch.Tensor, n_local: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ids into this rank's block of ``n_local`` of a cut dimension,
+        clamped into it; whether each id lies in the block)."""
+        rel = ids - self.index * n_local
+        hit = (rel >= 0) & (rel < n_local)
+        return rel.clamp(0, n_local - 1), hit
 
 
 def specs_from_descs(descs: Any) -> Any:
@@ -264,12 +365,19 @@ def mlp_descs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDesc]:
 
 
 def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
-              act: str = "silu") -> torch.Tensor:
+              act: str = "silu", axis: Optional[ModelAxis] = None
+              ) -> torch.Tensor:
+    """The gated MLP; over a ``ModelAxis`` that cuts ``mlp``,
+    column-parallel ``wi_gate``/``wi_up`` and row-parallel ``wo``."""
+    cut = axis is not None and axis.mlp
+    if cut:
+        x = axis.copy_in(x)
     gate = x @ p["wi_gate"]
     up = x @ p["wi_up"]
     g32 = gate.float()
     a = F.silu(g32) if act == "silu" else F.gelu(g32, approximate="tanh")
-    return (a.to(x.dtype) * up) @ p["wo"]
+    out = (a.to(x.dtype) * up) @ p["wo"]
+    return axis.reduce_out(out) if cut else out
 
 
 def embed_descs(cfg: ModelConfig) -> Dict[str, ParamDesc]:
@@ -282,8 +390,18 @@ def embed_descs(cfg: ModelConfig) -> Dict[str, ParamDesc]:
     return d
 
 
-def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    emb = p["embedding"][tokens]
+def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig,
+                 axis: Optional[ModelAxis] = None) -> torch.Tensor:
+    """The tokens' embedding rows; over a ``ModelAxis`` that cuts
+    ``vocab`` each rank looks up the tokens in its rows, zeros the
+    others and the ranks' rows are summed (exact: one term is not
+    zero)."""
+    if axis is not None and axis.vocab:
+        rows, hit = axis.local(tokens, p["embedding"].shape[0])
+        emb = axis.reduce_out(torch.where(hit[..., None],
+                                          p["embedding"][rows], 0.0))
+    else:
+        emb = p["embedding"][tokens]
     if cfg.tie_embeddings:
         # the scale rounds to the compute dtype first, as in the reference
         emb = emb * float(torch.tensor(math.sqrt(cfg.d_model),
@@ -291,9 +409,14 @@ def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return emb
 
 
-def unembed(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def unembed(p, h: torch.Tensor, cfg: ModelConfig,
+            axis: Optional[ModelAxis] = None) -> torch.Tensor:
     """Logits in float32: exact for float32 models; for bfloat16 the
-    product accumulates in float32 inside the matmul and rounds once."""
+    product accumulates in float32 inside the matmul and rounds once.
+    Over a ``ModelAxis`` that cuts ``vocab``: this rank's columns of the
+    vocabulary, softcapped elementwise."""
+    if axis is not None and axis.vocab:
+        h = axis.copy_in(h)
     if cfg.tie_embeddings:
         logits = h @ p["embedding"].t()
     else:

@@ -40,7 +40,7 @@ with MoE layers stays sync-free.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -71,12 +71,14 @@ def capacity_for(cfg: ModelConfig, num_tokens: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TokenGroup:
-    """The ``n`` ranks of a data axis whose rows one dispatch serves.
+    """The ``n`` ranks of a data axis whose rows one dispatch serves
+    (``group``: their process subgroup; None for the whole group).
     ``every_row``: each rank holds every row of the batch (one the ranks
     do not divide, ``data.every_row``), so the dispatch is the
     one-process dispatch on each rank."""
     n: int
     every_row: bool = False
+    group: Any = None
 
     def tokens(self, local: int) -> int:
         """The tokens the capacity is sized for."""
@@ -88,8 +90,8 @@ class TokenGroup:
         (E,) int32, from this rank's ``local`` counts."""
         if self.every_row:
             return torch.zeros_like(local), local
-        every = all_gather_dim(local[None], 0)                  # (n, E)
-        r = dist.get_rank()
+        every = all_gather_dim(local[None], 0, self.group)      # (n, E)
+        r = dist.get_rank(self.group)
         return (every[:r].sum(0, dtype=torch.int32),
                 every.sum(0, dtype=torch.int32))
 

@@ -20,10 +20,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (ParamDesc, embed_descs, embed_tokens,
-                                       layer_at, mlp_apply, mlp_descs,
-                                       no_constrain, no_gather, remat_wrap,
-                                       rms_norm, unembed, unstack)
+from repro_torch.models.layers import (ModelAxis, ParamDesc, embed_descs,
+                                       embed_tokens, layer_at, mlp_apply,
+                                       mlp_descs, no_constrain, no_gather,
+                                       remat_wrap, rms_norm, unembed, unstack)
 
 
 def _groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -74,25 +74,27 @@ def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
     return {name: {"k": kv, "v": kv} for name in cache_spec(cfg, 8)}
 
 
-def _ffn(lp, x: torch.Tensor, cfg: ModelConfig, moe_group=None):
+def _ffn(lp, x: torch.Tensor, cfg: ModelConfig, moe_group=None,
+         axis: Optional[ModelAxis] = None):
     """(FFN output, the MoE aux or None)."""
     if cfg.num_experts:
         return moe_mod.moe_apply(lp["moe"], x, cfg, moe_group)
-    return mlp_apply(lp["mlp"], x, cfg.mlp_act), None
+    return mlp_apply(lp["mlp"], x, cfg.mlp_act, axis), None
 
 
 def _block(h, lp, cfg: ModelConfig, attend, constrain=no_constrain,
-           moe_group=None):
+           moe_group=None, axis: Optional[ModelAxis] = None):
     """One pre-norm (optionally sandwich-norm) layer; ``attend(x)``
     returns (attention output, k, v to cache). Returns (h, k, v, the
-    FFN's aux or None)."""
+    FFN's aux or None). ``axis``: the attention's output projection and
+    the MLP run tensor parallel over it where its rules cut them."""
     eps = cfg.norm_eps
     a, k, v = attend(rms_norm(h, lp["ln_attn"], eps))
-    a = attn.out_project(lp["attn"], a)
+    a = attn.out_project(lp["attn"], a, axis)
     if cfg.use_post_norms:
         a = rms_norm(a, lp["ln_post_attn"], eps)
     h = constrain(h + a, ("batch", None, None))
-    m, aux = _ffn(lp, rms_norm(h, lp["ln_mlp"], eps), cfg, moe_group)
+    m, aux = _ffn(lp, rms_norm(h, lp["ln_mlp"], eps), cfg, moe_group, axis)
     if cfg.use_post_norms:
         m = rms_norm(m, lp["ln_post_mlp"], eps)
     return constrain(h + m, ("batch", None, None)), k, v, aux
@@ -100,7 +102,8 @@ def _block(h, lp, cfg: ModelConfig, attend, constrain=no_constrain,
 
 def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                    extra_embeds: Optional[torch.Tensor] = None, remat=True,
-                   constrain=no_constrain, gather=no_gather, moe_group=None
+                   constrain=no_constrain, gather=no_gather, moe_group=None,
+                   model_axis: Optional[ModelAxis] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training forward over the whole sequence: (final-norm hidden
     states (B, S_total, D), {"lb_loss": the MoE load-balancing losses
@@ -111,8 +114,13 @@ def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     and ``final_norm`` around the stack, each layer's leaves inside its
     remat unit, so the recompute gathers them again. ``moe_group`` (a
     ``moe.TokenGroup``) dispatches each MoE layer over the group's rows;
-    its count all-gather sits in the remat unit too."""
-    h = embed_tokens(gather("embed", params["embed"]), tokens, cfg)
+    its count all-gather sits in the remat unit too. ``model_axis`` (a
+    ``layers.ModelAxis``, the dense family): the embedding, attention
+    and MLP run tensor parallel over it, each layer's collectives inside
+    its remat unit, so the recompute issues them again in the same
+    order on every rank."""
+    h = embed_tokens(gather("embed", params["embed"]), tokens, cfg,
+                     model_axis)
     if extra_embeds is not None:
         h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
     B, S, _ = h.shape
@@ -127,13 +135,15 @@ def hidden_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             lp = gather("layers", layers[g * plen + s])
 
             def attend(x, lp=lp, w=windows[s]):
-                q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions)
+                q, k, v = attn.qkv_project(lp["attn"], x, cfg, positions,
+                                           model_axis)
                 q = constrain(q, ("batch", None, "heads", None))
                 return attn.attention(q, k, v, window=w,
                                       softcap_val=cfg.attn_logit_softcap,
                                       positions=positions), k, v
 
-            h, _, _, aux = _block(h, lp, cfg, attend, constrain, moe_group)
+            h, _, _, aux = _block(h, lp, cfg, attend, constrain, moe_group,
+                                  model_axis)
             if aux is not None:
                 lb = lb + aux["lb_loss"]
                 dropped = dropped + aux["dropped"]

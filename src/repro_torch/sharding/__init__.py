@@ -4,8 +4,8 @@
 STT-RAM dies (serving; every die folds onto one card); ``mesh.Mesh``
 with ``make_production_mesh`` / ``make_host_mesh`` are the training
 meshes, the production mesh over the ranks of the process group, and
-``rules`` maps logical axes onto them (``rules.DataShards``: a rank's
-slices over the data axis)."""
+``rules`` maps logical axes onto them (``rules.MeshShards``: a rank's
+(d, m) blocks over the data and model axes)."""
 from repro_torch.sharding import rules  # noqa: F401
 from repro_torch.sharding.mesh import (DIE_AXIS, DieMesh, Mesh,  # noqa: F401
                                        NamedSharding, make_host_mesh,

@@ -26,10 +26,11 @@ placeholder ids, for the rules' arithmetic) with axis names, and the
 position of this process in it. The training mesh
 (``make_production_mesh``) lays the ranks of the process group
 (``repro_torch.device.start_process_group``) out as (data, model), one
-rank a device; ``make_host_mesh`` is the one-device mesh. The port
-trains over the ``data`` axis (``rules.make_constrain`` takes any
-(data=N, model=1) mesh); a ``model`` axis over more than one device is
-refused there.
+rank a device, as the reference reshapes its devices: rank
+``d * M + m`` at coordinates (d, m). Over a running group it also holds
+this rank's process subgroup of each axis (``Mesh.groups``): the
+``model`` group of its data row and the ``data`` group of its model
+column. ``make_host_mesh`` is the one-device mesh.
 """
 from __future__ import annotations
 
@@ -39,8 +40,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.device import rank_and_world, resolve_device
+from repro_torch.device import new_subgroups, rank_and_world, resolve_device
 
 #: the named mesh axis the slot dimension is sharded over
 DIE_AXIS = "die"
@@ -54,12 +56,29 @@ class Mesh:
     axis_names: Tuple[str, ...]
     #: this process's flat index into ``devices`` (its rank)
     rank: int = 0
+    #: axis name -> this rank's process subgroup along it
+    #: (``axis_groups``); None off a process group
+    groups: Optional[Dict[str, Any]] = None
 
     def __post_init__(self):
         assert self.devices.ndim == len(self.axis_names), (
             self.devices.shape, self.axis_names)
         assert 0 <= self.rank < self.devices.size, (self.rank,
                                                     self.devices.shape)
+
+    @property
+    def coords(self) -> Tuple[int, ...]:
+        """This rank's index along each axis: (d, m) on (data, model)."""
+        return self.coords_of(self.rank)
+
+    def coords_of(self, rank: int) -> Tuple[int, ...]:
+        return tuple(int(i) for i in np.unravel_index(rank,
+                                                      self.devices.shape))
+
+    def index(self, axis: str, rank: Optional[int] = None) -> int:
+        """``rank``'s (default this rank's) index along ``axis``."""
+        rank = self.rank if rank is None else rank
+        return self.coords_of(rank)[self.axis_names.index(axis)]
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -218,13 +237,28 @@ def group_devices(device=None) -> List[torch.device]:
     return [dev] * world
 
 
+def axis_groups(shape: Tuple[int, ...], axis_names: Tuple[str, ...]
+                ) -> Dict[str, Any]:
+    """This rank's process subgroup along each axis of a mesh of
+    ``shape`` over the running group: for each axis in order, one group
+    for each line of ranks along it (the others' indices fixed, in
+    row-major order), every rank building every group in that order."""
+    ranks = np.arange(int(np.prod(shape))).reshape(shape)
+    out = {}
+    for a, name in enumerate(axis_names):
+        lines = np.moveaxis(ranks, a, -1).reshape(-1, shape[a])
+        out[name] = new_subgroups([list(line) for line in lines])
+    return out
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          shape: Optional[Tuple[int, ...]] = None,
                          device=None) -> Mesh:
     """The reference's pod mesh: (data=16, model=16), multi-pod (pod=2,
     16, 16); ``shape`` overrides the intra-pod (data, model) split. Over
     the ranks of the process group (``group_devices``), this process at
-    its rank; a shape that does not cover the group exactly raises."""
+    its rank, with its axis subgroups when the group is running; a
+    shape that does not cover the group exactly raises."""
     if shape is None:
         shape = (2, 16, 16) if multi_pod else (16, 16)
     elif multi_pod:
@@ -236,7 +270,9 @@ def make_production_mesh(*, multi_pod: bool = False,
         raise RuntimeError(f"need {n} devices for the production mesh, "
                            f"found {len(devices)} in the process group")
     rank, _ = rank_and_world()
-    return Mesh(device_grid(devices, tuple(shape)), axes, rank)
+    groups = (axis_groups(tuple(shape), axes) if dist.is_initialized()
+              else None)
+    return Mesh(device_grid(devices, tuple(shape)), axes, rank, groups)
 
 
 def make_host_mesh(device=None) -> Mesh:

@@ -13,9 +13,10 @@ Durability:
     it, and an exception raised in the commit surfaces there;
   * ``restore(device=)`` lays each leaf onto one device or onto a
     same-structure tree of devices;
-  * over the data axis of a process group (``dims=``), rank 0 gathers
-    each leaf whole and writes what one process writes, and on restore
-    reads and checks each leaf and hands every rank its slice, as the
+  * over a (data, model) process mesh (``dims=``: each leaf's
+    ``sharding.rules.Cut``), rank 0 gathers each leaf whole over both
+    axes and writes what one process writes, and on restore reads and
+    checks each leaf and hands every rank its (d, m) block, as the
     reference's checkpointer gathers each leaf to the host.
 
 EXTENT: with an ``extent_policy(path, leaf)``, every floating-point leaf
@@ -67,7 +68,6 @@ from repro_torch import tree as T
 from repro_torch.core.priority import Priority, keystr
 from repro_torch.device import resolve_device
 from repro_torch.memory import rng_streams
-from repro_torch.models.layers import all_gather_dim
 
 COMPLETE = "COMPLETE"
 _STEP_RE = re.compile(r"^step_(\d{9})$")
@@ -109,21 +109,20 @@ def _broadcast_object(obj: Any) -> Any:
     return box[0]
 
 
-def _hand_out(leaf: Optional[torch.Tensor], like: Any, dim: Optional[int],
+def _hand_out(leaf: Optional[torch.Tensor], like: Any, cut: Any,
               device: torch.device) -> torch.Tensor:
-    """Rank 0's whole ``leaf`` to every rank: its block of ``dim`` (the
-    shape of ``like``, this rank's slice), or all of it where ``dim`` is
-    None."""
+    """Rank 0's whole ``leaf`` to every rank: its block under ``cut``
+    (the shape of ``like``), or all of it where ``cut`` is None or cuts
+    nothing."""
     out = torch.empty(tuple(like.shape), dtype=like.dtype, device=device)
     root = dist.get_rank() == 0
-    if dim is None:
+    if cut is None or not cut.cut:
         if root:
             out.copy_(leaf)
         dist.broadcast(out, src=0)
         return out
-    parts = ([c.contiguous() for c in leaf.chunk(dist.get_world_size(),
-                                                   dim)]
-             if root else None)
+    parts = ([cut.block(leaf, r).contiguous()
+              for r in range(dist.get_world_size())] if root else None)
     dist.scatter(out, parts, src=0)
     return out
 
@@ -177,9 +176,9 @@ class Checkpointer:
         """Snapshot ``state`` to host memory now; commit it to disk in the
         worker thread (``async_save``) or here.
 
-        ``dims`` (``DataShards.state_dims()``): ``state`` holds this
-        rank's slices over the process group's data axis. Each sliced
-        leaf is gathered whole, one at a time, every rank taking part;
+        ``dims`` (``MeshShards.state_dims()``): ``state`` holds this
+        rank's blocks over the process mesh. Each cut leaf is gathered
+        whole over both axes, one at a time, every rank taking part;
         rank 0 snapshots and commits them, so the files are a one-process
         save's of the whole state, and the other ranks return."""
         self.wait()
@@ -192,7 +191,7 @@ class Checkpointer:
             host = []
             for (p, x), d in zip(flat, tdef.flatten_up_to(dims)):
                 if d is not None:
-                    x = all_gather_dim(x, d)
+                    x = d.whole(x)
                 if root:
                     host.append((p, *_to_host(x)))
             if not root:
@@ -329,12 +328,12 @@ class Checkpointer:
         ``extent_policy``, the restore is bit-identical to what was
         saved.
 
-        ``dims`` (``DataShards.state_dims()``): ``state_like`` is this
-        rank's slices over the process group's data axis (their shapes
-        are read too). Rank 0 reads
-        and checks each leaf whole, as one process would, and hands each
-        rank its slice (a replicated leaf whole) before the next leaf;
-        every rank returns the same ``extra`` and report."""
+        ``dims`` (``MeshShards.state_dims()``): ``state_like`` is this
+        rank's blocks over the process mesh (their shapes are read too).
+        Rank 0 reads and checks each leaf whole, as one process would,
+        and hands each rank its (d, m) block (a replicated leaf whole)
+        before the next leaf; every rank returns the same ``extra`` and
+        report."""
         root = dims is None or dist.get_rank() == 0
         step = self.latest_step() if step is None and root else step
         if dims is not None:

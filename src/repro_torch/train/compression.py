@@ -12,14 +12,16 @@ buffer of zeros, leaf ``i`` keyed ``fold_in(key, i)``) before it is
 dequantised: the int8 lanes of the write kernel, upsets absorbed by the
 error feedback.
 
-Over the data axis of a process group (``dims``) each rank compresses
-its slice of the reduce-scattered gradient as one process compresses
-the whole: a per-tensor scale takes the group's largest magnitude (one
-all-reduce MAX), a per-channel scale too unless the slice is cut along
-the channel axis; the residual stays the rank's slice; a wire write
-gathers the leaf's codes, writes the whole leaf under its key as one
-process does, and keeps the rank's block of the stored codes, so the
-stored words and the ``WriteStats`` are one process's.
+Over a (data, model) process mesh (``dims``: each leaf's
+``sharding.rules.Cut``) each rank compresses its block of the gradient
+as one process compresses the whole: a per-tensor scale takes the
+largest magnitude over the ranks holding the leaf's other blocks (an
+all-reduce MAX over each axis that cuts it), a per-channel scale too
+over each axis that does not cut the channel axis; the residual stays
+the rank's block; a wire write gathers the leaf's codes whole, writes
+them under its key as one process does, and keeps the rank's block of
+the stored codes, so the stored words and the ``WriteStats`` are one
+process's.
 """
 from __future__ import annotations
 
@@ -28,12 +30,10 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch import rng
 from repro_torch import tree as T
 from repro_torch.core.priority import Priority
-from repro_torch.models.layers import all_gather_dim
 
 #: ``compress_grads``' key when the caller gives none (the reference's)
 DEFAULT_WIRE_KEY = 0x5717
@@ -58,22 +58,22 @@ def init_state(params: Any) -> Any:
 
 
 def quantize(g: torch.Tensor, bits: int, *, per_channel: bool = False,
-             dim: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+             cut=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int quantisation of ``g`` (float32): (int8 codes, scale).
     The scale is per tensor, or with ``per_channel`` and two or more axes
     per leading-axis slice, shape (d0, 1, ..., 1). The scale is a true
     float32 division by ``qmax``, as the reference's eager call
-    computes it. ``dim``: ``g`` is this rank's block of a leaf cut along
-    ``dim`` over the process group, and the scale is the whole leaf's
-    (its block of rows where the channels are cut)."""
+    computes it. ``cut`` (a ``sharding.rules.Cut``): ``g`` is this
+    rank's block of a leaf over a process mesh, and the scale is the
+    whole leaf's (its block of rows where the channels are cut)."""
     qmax = 2.0 ** (bits - 1) - 1.0
     if per_channel and g.dim() >= 2:
         amax = torch.amax(torch.abs(g), dim=tuple(range(1, g.dim())),
                           keepdim=True)
     else:
         amax = torch.amax(torch.abs(g))
-    if dim is not None and not (dim == 0 and amax.dim()):
-        dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+    if cut is not None:
+        cut.max_(amax, rows=amax.dim() > 0)
     scale = torch.clamp(amax, min=1e-12) / qmax
     q = torch.clamp(torch.round(g / scale), -qmax, qmax).to(torch.int8)
     return q, scale
@@ -84,30 +84,30 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def wire_write(key: np.ndarray, q: torch.Tensor, cfg: CompressionConfig,
-               dim: Optional[int] = None):
+               cut=None):
     """The staging buffer's cold write of int8 codes ``q`` under ``key``
-    (every code bit pays): (the stored codes, ``WriteStats``). ``dim``:
-    ``q`` is this rank's block along ``dim``; the whole leaf is gathered
-    and written, and this rank's block of it kept."""
+    (every code bit pays): (the stored codes, ``WriteStats``). ``cut``:
+    ``q`` is this rank's block (``quantize``); the whole leaf is
+    gathered and written, and this rank's block of it kept."""
     from repro_torch import memory
-    whole = q if dim is None else all_gather_dim(q, dim)
+    whole = q if cut is None else cut.whole(q)
     stored, st = memory.write(key, torch.zeros_like(whole), whole,
                               level=cfg.wire_level, backend=cfg.wire_backend)
-    if dim is not None:
-        stored = stored.chunk(dist.get_world_size(), dim)[dist.get_rank()]
+    if cut is not None:
+        stored = cut.block(stored)
     return stored, st
 
 
 def compress_grads(grads: Any, ef: Any, cfg: CompressionConfig,
                    key: Optional[np.ndarray] = None, *,
                    with_stats: bool = False,
-                   dims: Optional[List[Optional[int]]] = None):
+                   dims: Optional[List[Any]] = None):
     """(grads, residual) -> (the gradients as the wire delivers them, the
     new residual), plus the wire writes' ``WriteStats`` with
     ``with_stats`` (None without a wire backend). ``key`` (a host
     threefry key) seeds the wire writes; without one a fixed key is
-    used, as in the reference. ``dims`` (``DataShards.flat_dims``): the
-    leaves are this rank's slices, compressed as the whole leaves are;
+    used, as in the reference. ``dims`` (``MeshShards.flat_dims``): the
+    leaves are this rank's blocks, compressed as the whole leaves are;
     the stats are the whole leaves', once."""
     if not cfg.enable:
         return (grads, ef, None) if with_stats else (grads, ef)
@@ -127,7 +127,7 @@ def compress_grads(grads: Any, ef: Any, cfg: CompressionConfig,
     for i, ((_, g), e, d) in enumerate(zip(flat_g, flat_e, dims)):
         g32 = g.to(torch.float32) + e
         q, scale = quantize(g32, cfg.bits, per_channel=cfg.per_channel,
-                            dim=d)
+                            cut=d)
         if wire:
             q, st = wire_write(rng.fold_in(key, i), q, cfg, d)
             stats = stats + st

@@ -66,43 +66,45 @@ def make_batch(cfg: DataConfig, step: int, device=None
     return {"tokens": tokens, "labels": labels}
 
 
-def every_row(batch_size: int, world: int) -> bool:
-    """Whether each of ``world`` ranks holds every row of a global batch
-    of ``batch_size`` (``rank_rows``): where the ranks do not divide
-    it."""
-    return batch_size % world != 0
+def every_row(batch_size: int, data_size: int) -> bool:
+    """Whether each of ``data_size`` ranks of a data axis holds every row
+    of a global batch of ``batch_size`` (``rank_rows``): where the axis
+    does not divide it."""
+    return batch_size % data_size != 0
 
 
-def rank_rows(batch: Dict[str, torch.Tensor], rank: int, world: int
-              ) -> Dict[str, torch.Tensor]:
-    """Rank ``rank``'s rows ``[r B / N, (r + 1) B / N)`` of a global batch
-    over a data axis of ``world`` ranks; every row where ``world`` does
-    not divide the batch (replicated, as ``spec_for`` replicates what
-    does not divide)."""
+def rank_rows(batch: Dict[str, torch.Tensor], data_index: int,
+              data_size: int) -> Dict[str, torch.Tensor]:
+    """The rows ``[d B / D, (d + 1) B / D)`` of a global batch at index
+    ``d = data_index`` of a data axis of ``D = data_size`` ranks (every
+    rank of a model group holds the same rows); every row where ``D``
+    does not divide the batch (replicated, as ``spec_for`` replicates
+    what does not divide)."""
     B = next(iter(batch.values())).shape[0]
-    if world == 1 or every_row(B, world):
+    if data_size == 1 or every_row(B, data_size):
         return batch
-    n = B // world
-    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+    n = B // data_size
+    return {k: v[data_index * n:(data_index + 1) * n]
+            for k, v in batch.items()}
 
 
 @dataclasses.dataclass
 class DataIterator:
     """Stateful view over ``make_batch`` with a checkpointable cursor;
-    over a data axis of ``world`` ranks each draws the global batch and
-    keeps its ``rank_rows``."""
+    over a data axis of ``data_size`` ranks each draws the global batch
+    and keeps its ``rank_rows`` at its ``data_index``."""
     cfg: DataConfig
     step: int = 0
     device: Optional[torch.device] = None
-    rank: int = 0
-    world: int = 1
+    data_index: int = 0
+    data_size: int = 1
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
         b = rank_rows(make_batch(self.cfg, self.step, self.device),
-                      self.rank, self.world)
+                      self.data_index, self.data_size)
         self.step += 1
         return b
 

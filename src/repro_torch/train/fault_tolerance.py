@@ -120,7 +120,7 @@ def reshard_state(state: Any, shardings: Any) -> Any:
     """Re-lay a tree of tensors onto a same-structure tree of shardings:
     each leaf whole ``.to()`` its sharding's device (this rank's; a
     rank's slices over the data axis come from
-    ``sharding.rules.DataShards.keep``). With checkpointed state this
+    ``sharding.rules.MeshShards.keep``). With checkpointed state this
     composes as ``ckpt.restore(state_like, device=...)``."""
     flat, tdef = T.flatten_with_def(state)
     return tdef.unflatten([x.to(s.device) for (_, x), s in zip(

@@ -63,20 +63,21 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree: Any, sharded: Optional[List[bool]] = None
+def global_norm(tree: Any, counted: Optional[List[bool]] = None
                 ) -> torch.Tensor:
-    """The float32 L2 norm over every leaf. With ``sharded`` (per leaf:
-    held as a slice over the process group's data axis) it is the whole
-    tree's: the per-leaf sums of squares are summed over the ranks, a
-    replicated leaf's taken from rank 0 alone, then added in leaf order
-    as on one process (an inf stays inf)."""
+    """The float32 L2 norm over every leaf. With ``counted`` (per leaf:
+    whether this rank's block is one the norm counts,
+    ``MeshShards.counted``; the leaves are the rank's blocks over a
+    process mesh) it is the whole tree's: the per-leaf sums of squares
+    of the counted blocks are summed over the ranks in one all-reduce,
+    so each distinct block counts once, then added in leaf order as on
+    one process (an inf stays inf)."""
     sq = [torch.sum(torch.square(g.to(torch.float32)))
           for g in T.leaves(tree)]
-    if sharded is not None and sq:
+    if counted is not None and sq:
         v = torch.stack(sq)
-        if dist.get_rank() != 0:
-            keep = torch.tensor(sharded, device=v.device)
-            v = torch.where(keep, v, torch.zeros_like(v))
+        keep = torch.tensor(counted, device=v.device)
+        v = torch.where(keep, v, torch.zeros_like(v))
         dist.all_reduce(v)
         sq = list(v.unbind())
     return torch.sqrt(sum(sq))
@@ -87,14 +88,14 @@ UPDATE_SLICE = 1 << 26
 
 
 def update(cfg: AdamWConfig, grads: Any, state: OptState, params: Any, *,
-           donate: bool = False, sharded: Optional[List[bool]] = None
+           donate: bool = False, counted: Optional[List[bool]] = None
            ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step: (new params, new state, {"grad_norm", "lr"}). With
     ``donate`` the new values overwrite ``params``' and ``state``'s
     tensors (which the result then holds); the caller must not read the
-    old values afterwards. ``sharded``: the leaves are a rank's slices
+    old values afterwards. ``counted``: the leaves are a rank's blocks
     (``global_norm``); the update stays elementwise on them."""
-    gnorm = global_norm(grads, sharded)
+    gnorm = global_norm(grads, counted)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

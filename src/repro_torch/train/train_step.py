@@ -13,8 +13,9 @@ parameters and optimizer state, as the reference's does, or with
 ``donate`` writes them into the ones it was given.
 
 ``make_train_step`` is the one-process step. ``make_sharded_train_step``
-is the same step on one rank of the data axis of a process group: its
-parameters and moments are the rank's slices, its batch the rank's rows.
+is the same step on one rank of a (data, model) process mesh: its
+parameters and moments are the rank's blocks, its batch its data row's
+rows.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch import tree as T
 from repro_torch.models import ModelApi
-from repro_torch.models.layers import no_constrain
+from repro_torch.models.layers import ModelAxis, no_constrain
 from repro_torch.models.moe import TokenGroup
 from repro_torch.train import optimizer as opt
 
@@ -45,19 +46,27 @@ def chunked_ce_loss(api: ModelApi, params, h: torch.Tensor,
 
 
 def chunked_ce_sum(api: ModelApi, params, h: torch.Tensor,
-                   labels: torch.Tensor, chunk: int = 256
+                   labels: torch.Tensor, chunk: int = 256,
+                   model_axis: Optional[ModelAxis] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(CE summed over the positions whose label is not IGNORE, their
-    count), both float32, a chunk of the sequence at a time."""
+    count), both float32, a chunk of the sequence at a time. Over a
+    ``model_axis`` that cuts the vocabulary each rank holds its columns
+    of the logits (``vocab_parallel_ce``)."""
     S = h.shape[1]
     C = min(chunk, S)
     if S % C:
         C = S
+    cut = model_axis is not None and model_axis.vocab
 
     def chunk_loss(h_c, y_c):
-        logits = api.logits(params, h_c).float()              # (B, C, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, y_c.clamp(min=0)[..., None])[..., 0]
+        logits = api.logits(params, h_c, model_axis).float()  # (B, C, V)
+        if cut:
+            lse, ll = vocab_parallel_ce(logits, y_c.clamp(min=0),
+                                        model_axis)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = logits.gather(-1, y_c.clamp(min=0)[..., None])[..., 0]
         mask = (y_c != IGNORE).float()
         return ((lse - ll) * mask).sum(), mask.sum()
 
@@ -70,6 +79,22 @@ def chunked_ce_sum(api: ModelApi, params, h: torch.Tensor,
         loss_sum = loss_sum + ls
         count = count + n
     return loss_sum, count
+
+
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
+                      axis: ModelAxis) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log-sum-exp over the whole vocabulary, the label's logit) from
+    this rank's columns ``logits`` (B, C, V/M): ``lse = m + log sum_r
+    exp(lse_r - m)`` with ``m = max_r lse_r`` (one model-axis MAX and one
+    sum), the label's logit from the rank that holds it (zeros
+    elsewhere, summed). On a model group of one, ``lse_0 + log(1)``: the
+    plain values and gradients bit for bit."""
+    lse_r = torch.logsumexp(logits, dim=-1)
+    m = axis.max(lse_r)
+    lse = m + torch.log(axis.reduce_out(torch.exp(lse_r - m)))
+    cols, hit = axis.local(labels, logits.shape[-1])
+    ll = logits.gather(-1, cols[..., None])[..., 0]
+    return lse, axis.reduce_out(torch.where(hit, ll, 0.0))
 
 
 def loss_fn(api: ModelApi, params, batch: Dict[str, torch.Tensor], *,
@@ -129,25 +154,29 @@ def make_train_step(api: ModelApi, opt_cfg: opt.AdamWConfig, *,
 
 
 # ---------------------------------------------------------------------------
-# over the data axis of a process group
+# over a (data, model) process mesh
 
 
 def sharded_value_and_grad(api: ModelApi, params, batch, shards, *,
                            every_row: bool = False, loss_chunk: int = 256,
                            remat=True) -> Tuple[torch.Tensor, Dict, Any]:
-    """``value_and_grad`` of the whole group's loss on this rank's slices
-    of the parameters (``shards``: a ``sharding.rules.DataShards``) and
-    its rows of the batch: (loss, aux, gradient tree of the slices).
-    ``every_row``: the rank holds every row of the global batch, one the
-    ranks do not divide (``data.every_row``).
+    """``value_and_grad`` of the whole mesh's loss on this rank's blocks
+    of the parameters (``shards``: a ``sharding.rules.MeshShards``) and
+    its data row's rows of the batch: (loss, aux, gradient tree of the
+    blocks). ``every_row``: the rank holds every row of the global
+    batch, one the data axis does not divide (``data.every_row``).
 
-    The loss is the CE summed over every rank's rows over the token
+    The loss is the CE summed over the data axis's rows over the token
     count summed likewise, never a mean of the ranks' means: each rank
-    differentiates its own CE sum over the group's count, and the
-    gathers' reduce-scatters (sharded leaves) and ``sync_grads``
-    (replicated ones) sum the ranks' gradients. Where every rank holds
-    every row, the count is N times the batch's, so the sum over ranks is
-    the one-device gradient. A model with experts dispatches over the
+    differentiates its data row's CE sum over the axis's count, and the
+    gathers' reduce-scatters (data-sharded leaves) and ``sync_grads``
+    (leaves whole over ``data``) sum the data ranks' gradients. Where
+    every rank holds every row, the count is D times the batch's, so the
+    sum over the data ranks is the one-device gradient. Over the model
+    axis (``shards.model_axis``, the dense family) the ranks of a data
+    row hold the same rows and the same loss; the tensor-parallel
+    blocks' collectives hand each rank its blocks' gradients and every
+    other leaf's whole. A model with experts dispatches over the data
     group (``moe.TokenGroup``) and each rank differentiates its partial
     ``lb_loss``, whose sum over the ranks is the one-device loss. The
     loss and aux are detached and equal on every rank; the reported
@@ -155,19 +184,23 @@ def sharded_value_and_grad(api: ModelApi, params, batch, shards, *,
     flat, tdef = T.flatten_with_def(params)
     leaves = [p.detach().requires_grad_(True) for _, p in flat]
     p = tdef.unflatten(leaves)
-    # the embedding is made whole once, for the forward and the logits
+    # the embedding is made whole over data once, for the forward and
+    # the logits
     p = {**p, "embed": shards.gather("embed", p["embed"])}
 
     def gather(name, tree):
         return tree if name == "embed" else shards.gather(name, tree)
 
-    h, aux = api.forward_hidden(p, batch, remat=remat, gather=gather,
-                                moe_group=TokenGroup(shards.n, every_row))
-    loss_sum, count = chunked_ce_sum(api, p, h, batch["labels"], loss_chunk)
+    axis = shards.model_axis
+    h, aux = api.forward_hidden(
+        p, batch, remat=remat, gather=gather, model_axis=axis,
+        moe_group=TokenGroup(shards.n, every_row, shards.data_group))
+    loss_sum, count = chunked_ce_sum(api, p, h, batch["labels"], loss_chunk,
+                                     axis)
     lb = "lb_loss" in aux
     sums = torch.stack([loss_sum.detach(), count]
                        + ([aux["lb_loss"].detach()] if lb else []))
-    dist.all_reduce(sums)
+    dist.all_reduce(sums, group=shards.data_group)
     loss = loss_sum / torch.clamp(sums[1], min=1.0)
     if lb:
         loss = loss + LB_LOSS_COEF * aux["lb_loss"]
@@ -185,13 +218,14 @@ def sharded_value_and_grad(api: ModelApi, params, batch, shards, *,
 def make_sharded_train_step(api: ModelApi, opt_cfg: opt.AdamWConfig, shards,
                             *, loss_chunk: int = 256, remat=True,
                             donate: bool = False):
-    """``make_train_step`` over the data axis: ``train_step(params,
-    opt_state, batch, every_row=False)`` on this rank's slices
-    (``ModelApi.init(keep=shards.keep)``) and its batch rows
-    (``data.rank_rows``; ``every_row`` as in ``sharded_value_and_grad``),
-    AdamW elementwise on the slices under the whole tree's gradient norm.
-    On one rank its values are the one-process step's bit for bit."""
-    sharded = shards.sharded()
+    """``make_train_step`` over a (data, model) mesh:
+    ``train_step(params, opt_state, batch, every_row=False)`` on this
+    rank's blocks (``ModelApi.init(keep=shards.keep)``) and its data
+    row's batch rows (``data.rank_rows``; ``every_row`` as in
+    ``sharded_value_and_grad``), AdamW elementwise on the blocks under
+    the whole tree's gradient norm. On one rank its values are the
+    one-process step's bit for bit."""
+    counted = shards.counted()
 
     def train_step(params, opt_state, batch, every_row: bool = False):
         loss, aux, grads = sharded_value_and_grad(
@@ -199,7 +233,7 @@ def make_sharded_train_step(api: ModelApi, opt_cfg: opt.AdamWConfig, shards,
             loss_chunk=loss_chunk, remat=remat)
         params2, opt_state2, om = opt.update(opt_cfg, grads, opt_state,
                                              params, donate=donate,
-                                             sharded=sharded)
+                                             counted=counted)
         return params2, opt_state2, {"loss": loss, **aux, **om}
 
     return train_step

@@ -5,8 +5,8 @@ spec tests, with every spec equal to the reference's ``PartitionSpec``
 entries for every architecture: on the one-device host mesh and on a
 (16, 16) mesh of placeholder ids, where the divisibility fallback
 decides. ``make_constrain`` is the identity on one device and on a
-(data=N, model=1) mesh, and refuses a mesh whose model axis spans two
-devices."""
+(data, model) mesh for the dense family, and refuses a model axis over
+two devices for a model with experts, and a pod axis over two."""
 import jax
 import numpy as np
 import pytest
@@ -24,8 +24,9 @@ from repro_torch.sharding import (DIE_AXIS, DieMesh, Mesh, NamedSharding,
                                   make_host_mesh, make_production_mesh)
 from repro_torch.sharding.mesh import device_grid
 from repro_torch.sharding.rules import (_axis_size, default_rules,
-                                        make_constrain, spec_for,
-                                        strategy_rules, tree_shardings)
+                                        make_constrain, mesh_shards,
+                                        spec_for, strategy_rules,
+                                        tree_shardings)
 from repro_torch.train import fault_tolerance as ft
 
 CPU = torch.device("cpu")
@@ -179,11 +180,28 @@ def test_constrain_is_identity_on_host_mesh(meshes):
     assert constrain(x, ("batch", "mlp")) is x
 
 
-def test_constrain_refuses_a_mesh_over_two_devices():
-    """Two devices on the model axis: tensor parallelism is not built."""
+@pytest.mark.parametrize("refused", ["moe_over_model", "pod"])
+def test_constrain_refuses_a_mesh_over_two_devices(refused):
+    """Two devices on the model axis take the dense family, and still
+    refuse a model with experts (its shards: expert parallelism is a
+    later slice); two devices on a pod axis are refused for any
+    model."""
+    dense = get_model(get_config("qwen2.5-3b").reduced())
+    if refused == "pod":
+        mesh = Mesh(device_grid([CPU, CPU], (2, 1, 1)),
+                    ("pod", "data", "model"))
+        for api in (dense, get_model(get_config("dbrx-132b").reduced())):
+            with pytest.raises(NotImplementedError, match="pod axis"):
+                make_constrain(mesh, default_rules(mesh), api.cfg)
+        return
     mesh = Mesh(device_grid([CPU, CPU], (1, 2)), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        make_constrain(mesh, default_rules(mesh))
+    x = torch.ones(2)
+    assert make_constrain(mesh, default_rules(mesh), dense.cfg)(x, None) \
+        is x
+    moe = get_model(get_config("dbrx-132b").reduced())
+    with pytest.raises(NotImplementedError,
+                       match="expert.*later slice"):
+        mesh_shards(mesh, default_rules(mesh), moe)
 
 
 def test_training_meshes():

@@ -1,5 +1,5 @@
 """The port's training over the ``data`` axis of a process group
-(``repro_torch.device.start_process_group``, ``sharding.rules.DataShards``,
+(``repro_torch.device.start_process_group``, ``sharding.rules.MeshShards``,
 ``train_step.make_sharded_train_step``, ``Checkpointer(dims=)``,
 ``launch.train.launch``), on the CPU with gloo ranks spawned from a
 ``FileStore`` under ``tmp_path``, one torch thread a rank, every
@@ -20,8 +20,9 @@ collective bounded by a timeout (``torch_mesh_ranks``).
 * A 2-rank checkpoint's leaf files are byte for byte a one-process
   save's of the gathered state; its restore hands back each slice of the
   one-process restore bit for bit, with the same integrity report.
-* The launcher over 2 gloo ranks, rank 0 in this process; a mesh with
-  ``model`` > 1 and a group that cannot be built each raise. (The other
+* The launcher over 2 gloo ranks, rank 0 in this process; a model axis
+  over more than one device for a model with experts or the hybrid
+  family, and a group that cannot be built, each raise. (The other
   families and ``--compress`` over ranks: ``test_torch_train_mesh_
   families.py``.)
 """
@@ -49,9 +50,8 @@ from repro_torch.models import get_model
 from repro_torch.reliability import RestoreIntegrity
 from repro_torch.sharding import Mesh, make_production_mesh
 from repro_torch.sharding.mesh import device_grid
-from repro_torch.sharding.rules import (DataShards, data_dims,
-                                        data_shards, default_rules,
-                                        make_constrain)
+from repro_torch.sharding.rules import (default_rules, leaf_cuts,
+                                        make_constrain, mesh_shards)
 from repro_torch.train import data as data_mod
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import (make_sharded_train_step,
@@ -150,11 +150,13 @@ def _differences(got, params, state, metrics):
 
 
 def _dims(world, api):
-    """``data_dims`` of ``api``'s parameters under the baseline rules on
-    a (world, 1) mesh."""
+    """Each leaf's data-axis dimension (``leaf_cuts``) under the baseline
+    rules on a (world, 1) mesh: (the params tree of them, the same in
+    leaf order)."""
     mesh = Mesh(device_grid([CPU] * world, (world, 1)), ("data", "model"))
-    return data_dims(mesh, default_rules(mesh), api.param_axes(),
-                     api.param_shapes())
+    tree, cuts = leaf_cuts(mesh, default_rules(mesh), api.param_axes(),
+                           api.param_shapes())
+    return T.tree_map(lambda c: c.data, tree), [c.data for c in cuts]
 
 
 def _check(diff, tol):
@@ -237,8 +239,7 @@ def test_one_rank_is_the_one_process_step(one_rank, arch):
     all-reduces identities: the sharded step's values are the
     one-process step's bit for bit."""
     api = get_model(get_config(arch).reduced())
-    shards = data_shards(one_rank, default_rules(one_rank),
-                         api.param_axes(), api.param_shapes())
+    shards = mesh_shards(one_rank, default_rules(one_rank), api)
     assert any(shards.sharded()) and not all(shards.sharded())
     got = R.steps(api, shards, 4, 0, 1)
     params, state, metrics = one_process(arch, 4)
@@ -270,8 +271,7 @@ def test_one_rank_every_family(one_rank, arch, remat):
     params = api.init(0, CPU)
     want = make_train_step(api, ocfg, remat=remat)(params, opt.init(params),
                                                    batch)
-    shards = data_shards(one_rank, default_rules(one_rank),
-                         api.param_axes(), api.param_shapes())
+    shards = mesh_shards(one_rank, default_rules(one_rank), api)
     params = api.init(0, CPU, keep=shards.keep)
     got = make_sharded_train_step(api, ocfg, shards, remat=remat)(
         params, opt.init(params), batch)
@@ -395,15 +395,26 @@ def test_launcher_over_two_ranks(tmp_path, capsys, monkeypatch):
 
 
 def test_a_model_axis_raises():
-    """Tensor parallelism is a later slice: a mesh whose model axis spans
-    more than one device is refused, whatever its data axis."""
+    """Tensor parallelism of the other families is a later slice: a mesh
+    whose model axis spans more than one device is refused for a model
+    with experts and for the hybrid family, whatever its data axis, and
+    taken for the dense family; a model axis of one takes every
+    family."""
+    moe = get_config("dbrx-132b").reduced()
+    hybrid = get_config("recurrentgemma-2b").reduced()
+    dense = get_config("qwen2.5-3b").reduced()
     for shape in ((1, 2), (2, 2)):
         mesh = Mesh(device_grid([CPU] * 4, (2, 2))[:shape[0], :shape[1]],
                     ("data", "model"))
-        with pytest.raises(NotImplementedError, match="tensor parallel"):
-            make_constrain(mesh, default_rules(mesh))
+        for cfg in (moe, hybrid):
+            with pytest.raises(NotImplementedError, match="later slice"):
+                make_constrain(mesh, default_rules(mesh), cfg)
+        assert make_constrain(mesh, default_rules(mesh), dense)(CPU, None) \
+            is CPU
     data = Mesh(device_grid([CPU] * 4, (4, 1)), ("data", "model"))
-    assert make_constrain(data, default_rules(data))(CPU, None) is CPU
+    for cfg in (moe, hybrid, dense):
+        assert make_constrain(data, default_rules(data), cfg)(CPU, None) \
+            is CPU
 
 
 def test_no_group_no_fallback(tmp_path):
@@ -419,8 +430,7 @@ def test_no_group_no_fallback(tmp_path):
     api = get_model(get_config("qwen2.5-3b").reduced())
     mesh = Mesh(device_grid([CPU] * 2, (2, 1)), ("data", "model"))
     with pytest.raises(RuntimeError, match="needs a process group of 2"):
-        DataShards(mesh, *data_dims(mesh, default_rules(mesh),
-                                    api.param_axes(), api.param_shapes()))
+        mesh_shards(mesh, default_rules(mesh), api)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             start_process_group(0, 1, f"file://{tmp_path}/s", None)

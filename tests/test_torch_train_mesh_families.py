@@ -22,7 +22,7 @@ group, on the CPU with gloo ranks spawned from a ``FileStore`` under
 * The launcher over 2 gloo ranks with a hybrid model and with
   ``--compress``; its world (one rank under ``--reduced``, one a CUDA
   device without, as the reference's host and production meshes), for
-  every family and ``--compress``; ``DataShards`` finds each family's
+  every family and ``--compress``; ``MeshShards`` finds each family's
   layer stacks from the logical axes.
 """
 import dataclasses

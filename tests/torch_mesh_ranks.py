@@ -1,8 +1,10 @@
-"""Rank bodies of ``test_torch_train_mesh.py`` and
-``test_torch_train_mesh_families.py``: each runs in a spawned process as
+"""Rank bodies of ``test_torch_train_mesh.py``,
+``test_torch_train_mesh_families.py`` and ``test_torch_train_tp.py``:
+each runs in a spawned process as
 one gloo rank on the CPU and imports nothing of the JAX package. Results
 go to files under the run's directory: rank 0 writes the gathered state
 and metrics of each case, every rank the elements it held."""
+import dataclasses
 import time
 
 import torch
@@ -14,11 +16,12 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.priority import Priority
 from repro_torch.device import end_process_group, start_process_group
+from repro_torch.launch import train as launcher
 from repro_torch.models import get_model
 from repro_torch.models.layers import all_gather_dim
 from repro_torch.reliability import RestoreIntegrity
 from repro_torch.sharding import make_production_mesh
-from repro_torch.sharding.rules import (data_shards, default_rules,
+from repro_torch.sharding.rules import (default_rules, mesh_shards,
                                         strategy_rules)
 from repro_torch.train import compression as comp
 from repro_torch.train import data as data_mod
@@ -28,6 +31,11 @@ from repro_torch.train.train_step import (make_sharded_train_step,
                                           make_train_step,
                                           sharded_value_and_grad,
                                           value_and_grad)
+
+#: the launcher's argv in the (data, model) cases, less --mesh-shape and
+#: --ckpt-dir
+LAUNCH_ARGV = ["--reduced", "--device", "cpu", "--steps", "3", "--seq",
+               "16", "--batch", "4", "--ckpt-every", "2"]
 
 CPU = torch.device("cpu")
 #: every collective's bound, and a whole run's
@@ -102,7 +110,7 @@ def steps(api, shards, batch_size: int, rank: int, world: int):
 def whole(tree, shards):
     """Every leaf of a params-shaped tree of slices gathered whole."""
     flat, tdef = T.flatten_with_def(tree)
-    return tdef.unflatten([x if d is None else all_gather_dim(x, d)
+    return tdef.unflatten([d.whole(x)
                            for (_, x), d in zip(flat, shards.flat_dims)])
 
 
@@ -119,8 +127,7 @@ def train_cases(rank: int, world: int, init: str, out: str, cases,
         mesh = make_production_mesh(shape=(world, 1), device=CPU)
         for n, (arch, batch_size, strategy) in enumerate(cases):
             api = get_model(get_config(arch).reduced())
-            shards = data_shards(mesh, strategy_rules(mesh, strategy),
-                                 api.param_axes(), api.param_shapes())
+            shards = mesh_shards(mesh, strategy_rules(mesh, strategy), api)
             params, state, metrics = steps(api, shards, batch_size, rank,
                                            world)
             held = sum(x.numel() for x in T.leaves((params, state.m,
@@ -183,7 +190,7 @@ def family_steps(api, batch_size: int, compress: bool, shards=None,
     ccfg = comp.CompressionConfig()
     ef = comp.init_state(params)
     every = data_mod.every_row(batch_size, world)
-    sharded = shards.sharded() if shards is not None else None
+    counted = shards.counted() if shards is not None else None
     dims = shards.flat_dims if shards is not None else None
     plain = (make_sharded_train_step(api, ocfg, shards)
              if shards is not None else make_train_step(api, ocfg))
@@ -203,7 +210,7 @@ def family_steps(api, batch_size: int, compress: bool, shards=None,
                 loss, aux, grads = value_and_grad(api, params, batch)
             grads, ef = comp.compress_grads(grads, ef, ccfg, dims=dims)
             params, state, om = opt.update(ocfg, grads, state, params,
-                                           sharded=sharded)
+                                           counted=counted)
             m = {"loss": loss, **aux, **om}
         metrics.append({k: float(v) for k, v in m.items()})
     return params, state, metrics
@@ -253,12 +260,13 @@ def compress_case(api, shards, per_channel: bool):
     for i, (g, e, d) in enumerate(zip(T.leaves(grads), T.leaves(ef),
                                       dims)):
         q, scale = comp.quantize(g + e, cfg.bits, per_channel=per_channel,
-                                 dim=d)
+                                 cut=d)
         stored, _ = comp.wire_write(rng.fold_in(key, i), q, cfg, d)
         if d is not None:
-            q, stored = all_gather_dim(q, d), all_gather_dim(stored, d)
-            if scale.dim() and d == 0:
-                scale = all_gather_dim(scale, 0)
+            q, stored = d.whole(q), d.whole(stored)
+            for a, dim in (("model", d.model), ("data", d.data)):
+                if scale.dim() and dim == 0:
+                    scale = all_gather_dim(scale, 0, d.mesh.groups[a])
         codes.append(q)
         scales.append(scale)
         words.append(stored)
@@ -281,8 +289,7 @@ def family_cases(rank: int, world: int, init: str, out: str, cases,
         mesh = make_production_mesh(shape=(world, 1), device=CPU)
         for name, cfg, batch_size, compress in cases:
             api = get_model(cfg)
-            shards = data_shards(mesh, default_rules(mesh),
-                                 api.param_axes(), api.param_shapes())
+            shards = mesh_shards(mesh, default_rules(mesh), api)
             params, state, metrics = family_steps(api, batch_size, compress,
                                                   shards, rank, world)
             tree = {"params": whole(params, shards),
@@ -290,11 +297,107 @@ def family_cases(rank: int, world: int, init: str, out: str, cases,
             if rank == 0:
                 torch.save({"metrics": metrics, **tree}, f"{out}/{name}.pt")
         api = get_model(get_config(compress_arch).reduced())
-        shards = data_shards(mesh, default_rules(mesh), api.param_axes(),
-                             api.param_shapes())
+        shards = mesh_shards(mesh, default_rules(mesh), api)
         for per_channel in (False, True):
             got = compress_case(api, shards, per_channel)
             if rank == 0:
                 torch.save(got, f"{out}/compress_{per_channel}.pt")
     finally:
         end_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the dense family over a (data, model) mesh
+
+
+def first_grads(api, shards, batch_size: int, data_index: int,
+                data_size: int):
+    """The gradient tree of the first step's loss at the seed-0
+    parameters, this rank's blocks (``shards``) or the whole leaves."""
+    dcfg = data_mod.DataConfig(api.cfg.vocab_size, SEQ, batch_size,
+                               seed=DATA_SEED)
+    batch = data_mod.make_batch(dcfg, 0, CPU)
+    if shards is None:
+        return value_and_grad(api, api.init(0, CPU), batch)[2]
+    batch = data_mod.rank_rows(batch, data_index, data_size)
+    return sharded_value_and_grad(
+        api, api.init(0, CPU, keep=shards.keep), batch, shards,
+        every_row=data_mod.every_row(batch_size, data_size))[2]
+
+
+def exact_grads(api, shards, batch_size: int, data_index: int,
+                data_size: int):
+    """``first_grads`` of ``api`` (a float64 config) with every
+    ``Tensor.float()`` of the model and the loss made float64 too: the
+    gradients of the same function to float64 rounding, on this rank's
+    blocks or the whole leaves."""
+    to_f32 = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        return first_grads(api, shards, batch_size, data_index, data_size)
+    finally:
+        torch.Tensor.float = to_f32
+
+
+def f64(cfg):
+    """``cfg`` with float64 parameters and compute."""
+    return dataclasses.replace(cfg, param_dtype="float64",
+                               compute_dtype="float64")
+
+
+def tp_cases(rank: int, world: int, init: str, out: str, shape, cases,
+             launch_init: str) -> None:
+    """Each (name, config, global batch) case on a ``shape`` (data,
+    model) mesh under the baseline rules: the first step's gradients,
+    then STEPS steps; rank 0 saves them gathered with the parameters,
+    moments and metrics, every rank the elements it held. The first
+    case's state is saved and restored through ``Checkpointer(dims=)``
+    (``checkpoint_case``) and ``compress_case`` runs on its blocks, per
+    tensor and per channel. Each config's ``exact_grads`` (float64) at
+    global batch 4 follow. Then the launcher over the same mesh
+    (``--mesh-shape``, ``LAUNCH_ARGV``, a checkpoint at step 2) on a
+    second group from ``launch_init``; rank 0 saves its result."""
+    torch.set_num_threads(1)
+    start_process_group(rank, world, init, CPU, TIMEOUT_S)
+    try:
+        mesh = make_production_mesh(shape=tuple(shape), device=CPU)
+        d, D = mesh.index("data"), shape[0]
+        for n, (name, cfg, batch_size) in enumerate(cases):
+            api = get_model(cfg)
+            shards = mesh_shards(mesh, default_rules(mesh), api)
+            grads = whole(first_grads(api, shards, batch_size, d, D),
+                          shards)
+            params, state, metrics = steps(api, shards, batch_size, d, D)
+            held = sum(x.numel() for x in T.leaves((params, state.m,
+                                                    state.v)))
+            torch.save(held, f"{out}/{name}.held{rank}.pt")
+            tree = {"params": whole(params, shards),
+                    "m": whole(state.m, shards), "v": whole(state.v, shards),
+                    "grads": grads}
+            if rank == 0:
+                torch.save({"metrics": metrics, **tree}, f"{out}/{name}.pt")
+            if n == 0:
+                checkpoint_case(rank, out, params, state, shards)
+                for per_channel in (False, True):
+                    got = compress_case(api, shards, per_channel)
+                    if rank == 0:
+                        torch.save(got, f"{out}/compress_{per_channel}.pt")
+        seen = []
+        for name, cfg, _ in cases:
+            if cfg in seen:
+                continue
+            seen.append(cfg)
+            api = get_model(f64(cfg))
+            shards = mesh_shards(mesh, default_rules(mesh), api)
+            grads = whole(exact_grads(api, shards, 4, d, D), shards)
+            if rank == 0:
+                torch.save(grads, f"{out}/{name}.f64.pt")
+    finally:
+        end_process_group()
+    args = launcher._parser().parse_args(LAUNCH_ARGV + [
+        "--mesh-shape", f"{shape[0]}x{shape[1]}", "--ckpt-dir",
+        f"{out}/launch_ck"])
+    res = launcher.train_rank(rank, world, launch_init, args,
+                              cases[0][1], TIMEOUT_S)
+    if rank == 0:
+        torch.save(res, f"{out}/launch.pt")
